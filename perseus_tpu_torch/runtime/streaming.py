@@ -1,0 +1,118 @@
+"""Streaming runtime: camera frame -> keypoints -> pose, eagerly on the card.
+
+Port of ``perseus_tpu/runtime/streaming.py``. One call per frame runs
+
+  preprocess (NaN/Inf depth -> 0, depth / cube_scale, deterministic near/far
+  clamp, center crop)
+  -> folded-BN ResNet-18 forward (bf16 with ``amp``), whose stem maxpool is
+     the CUDA kernel of ``models/pool.py``
+  -> keypoint denormalization
+  -> fixed-lag smoother update
+
+with the same ``__call__(frame, carry) -> (keypoints, image, carry, pose)``
+as the JAX pipeline. Nothing in the step reads back to the host.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from perseus_tpu_torch import ROOT, resolve_device
+from perseus_tpu_torch.augment.ops import depth_plane_clamp
+from perseus_tpu_torch.camera import center_crop_hw, denormalize_pixel_coordinates, intrinsics_from_fov
+from perseus_tpu_torch.datagen.labeling import cube_corners
+from perseus_tpu_torch.lie import SE3, se3_identity
+from perseus_tpu_torch.models import convert, resnet
+from perseus_tpu_torch.smoother.fixed_lag import FixedLagSmoother, SmootherCarry
+from perseus_tpu_torch.smoother.lm import SmootherConfig
+
+__all__ = ["StreamingConfig", "StreamingPipeline"]
+
+
+@dataclass(frozen=True)
+class StreamingConfig:
+    """Streaming pipeline configuration (the JAX package's, field for field)."""
+
+    model_path: str = f"{ROOT}/outputs/models/latest"
+    num_channels: int = 3  # 3 -> RGB model, 4 -> RGBD model
+    model_h: int = 256
+    model_w: int = 256
+    cube_scale: float = 0.035
+    apply_depth_clamp: bool = True
+    amp: bool = True
+    # smoother
+    smooth: bool = True
+    smoother: SmootherConfig = field(default_factory=lambda: SmootherConfig(window=24))
+    camera_fov: float = 1.0  # rad; used to build intrinsics for the smoother
+    # simulation replay: rendered depth already in cube units, and a
+    # smoother corner scale that may differ from cube_scale (0 -> cube_scale)
+    depth_in_cube_units: bool = False
+    corner_scale: float = 0.0
+
+
+class StreamingPipeline:
+    """Frame -> (keypoints, image, carry, pose) on ``device``.
+
+    ``state_dict`` is the detector's parameters and BN statistics in the
+    port's layout (``convert.from_jax_params``, ``KeypointCNN.state_dict()``);
+    when None it is loaded from ``cfg.model_path``.
+    """
+
+    def __init__(
+        self,
+        cfg: StreamingConfig,
+        state_dict: dict[str, torch.Tensor] | None = None,
+        device: str | torch.device | None = "cuda",
+    ):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if state_dict is None:
+            state_dict = convert.load_model(cfg.model_path)
+        sd = {k: v.detach().to(self.device, torch.float32) for k, v in state_dict.items()}
+        self.folded = resnet.fold_batchnorm(sd)
+        self.compute_dtype = torch.bfloat16 if cfg.amp else torch.float32
+
+        self.smoother = None
+        if cfg.smooth:
+            fov = torch.tensor(cfg.camera_fov, dtype=torch.float32, device=self.device)
+            intr = intrinsics_from_fov(fov, cfg.model_h, cfg.model_w)
+            corners = cube_corners(cfg.corner_scale or cfg.cube_scale, device=self.device)
+            self.smoother = FixedLagSmoother(cfg.smoother, intr, corners)
+
+    def init_carry(self, initial_pose: SE3 | None = None) -> SmootherCarry | None:
+        """Fresh smoother carry; pass `initial_pose` (e.g. from
+        FixedLagSmoother.coarse_pose_from_keypoints on the first detection)
+        to cold-start near the true pose."""
+        return self.smoother.init(initial_pose) if self.smoother is not None else None
+
+    def preprocess(self, frame: torch.Tensor) -> torch.Tensor:
+        """(H, W, 3|4) float32 -> (h, w, C) model input."""
+        cfg = self.cfg
+        rgb = frame[..., :3]
+        if cfg.num_channels >= 4:
+            depth = frame[..., 3]
+            depth = torch.where(torch.isfinite(depth), depth, 0.0)
+            if not cfg.depth_in_cube_units:  # metric camera depth
+                depth = depth / cfg.cube_scale
+            if cfg.apply_depth_clamp:
+                depth = depth_plane_clamp(depth, cube_scale=cfg.cube_scale)
+            frame = torch.cat([rgb, depth[..., None]], dim=-1)
+        else:
+            frame = rgb
+        return center_crop_hw(frame, cfg.model_h, cfg.model_w)
+
+    @torch.no_grad()
+    def __call__(self, frame: np.ndarray | torch.Tensor, carry: SmootherCarry | None):
+        """One frame in; (keypoints_px (K, 2), model_image, carry, pose) out."""
+        cfg = self.cfg
+        image = self.preprocess(torch.as_tensor(frame, dtype=torch.float32, device=self.device))
+        x = image.permute(2, 0, 1)[None].contiguous()  # NCHW
+        pred = resnet.keypoint_cnn_apply_folded(self.folded, x, compute_dtype=self.compute_dtype)
+        keypoints = denormalize_pixel_coordinates(pred.reshape(-1, 2), cfg.model_h, cfg.model_w)
+        if self.smoother is not None:
+            carry, pose = self.smoother.update(carry, keypoints)
+            return keypoints, image, carry, pose
+        return keypoints, image, carry, se3_identity(torch.float32, self.device)
