@@ -8,21 +8,35 @@ kernels are built for sm_90a). Phases, each of which fails the run with a
 non-zero exit:
 
   1. device: require CUDA; print the card's name and power limit;
-  2. build every CUDA kernel of the serving path from csrc/ with nvcc;
-  3. each kernel against its plain PyTorch version, on the card, at the
-     serving path's shapes and at the batch-256 detector shape, plus odd
-     shapes and NaN/-inf inputs: exact agreement required; CUDA-event times of
-     the kernel, the plain version and the nearest PyTorch library call;
-  4. the serving path at full width: StreamingPipeline, RGBD 376x672 frames
+  2. build every CUDA source in csrc/ with nvcc, one process per source, all
+     started together;
+  3. each kernel against its plain PyTorch version, on the card, at the main
+     paths' shapes plus odd shapes: the stem maxpool forward (exact, with
+     NaN/-inf inputs) and gradient (exact, with forced ties), the three fused
+     augmentation kernels at (256, 5, 256, 256) in f32 (atol 1e-5) and bf16
+     (one ulp: rtol 2^-7, atol 2^-9), with a swapped image and a rejected
+     transplant for the ultra kernel; CUDA-event times of the kernel, the
+     plain version and, where one exists, the PyTorch library call that
+     computes the same function;
+  4. the detector train step at the default TrainConfig: batch 256 of
+     5-channel 256x256 synthetic frames, fused ultra augmentation, ResNet-18
+     in bf16 with f32 params, SmoothL1, clip + AdamW; 3 warm-up steps, then
+     20 timed steps with every kernel's launches counted over exactly those
+     steps; finite losses and params; where a step's time goes (augmentation,
+     forward + backward, optimizer; device busy share by torch.profiler); the
+     two other augmentation branches (warp + chain for 4-channel input, the
+     chain alone without the affine) for a few steps each; and the CUDA step
+     against the CPU step (which the tier-1 tests hold against the JAX
+     package) on a small f32 configuration, same state, same draws;
+  5. the serving path at full width: StreamingPipeline, RGBD 376x672 frames
      cropped to 256x256, ResNet-18 folded bf16, fixed-lag smoother window 24
-     (GN-4), random weights from a seed, 64 frames. Every output finite; the
-     kernel's launches counted over exactly this run; the same frames again
+     (GN-4), random weights from a seed, 32 frames. Every output finite; the
+     maxpool's launches counted over exactly this run; the same frames again
      with the plain maxpool must give identical keypoints and poses; where a
      frame's time goes (detector alone, smoother alone, device busy share by
      torch.profiler); the default LM-8 smoother on a few frames; the detector
-     alone at batch 256; and the CUDA pipeline against the CPU pipeline
-     (which the tier-1 tests hold against the JAX package) on a small f32
-     configuration.
+     alone at batch 256; and the CUDA pipeline against the CPU pipeline on a
+     small f32 configuration.
 
 Prints the card line, then one JSON line describing each kernel, then, as the
 last line, {"ok": true, "device": {...}}.
@@ -34,6 +48,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM bytes/s and
@@ -41,7 +56,10 @@ from unittest import mock
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
-N_FRAMES = 64
+N_FRAMES = 32
+TRAIN_WARMUP, TRAIN_STEPS = 3, 20
+BF16_TOL = dict(rtol=2**-7, atol=2**-9)
+SOURCES = ("maxpool", "augment")
 
 
 def log(msg: str) -> None:
@@ -89,9 +107,11 @@ def phase_build():
     from perseus_tpu_torch.models import _build
 
     t0 = time.perf_counter()
-    path = _build.build("maxpool")
-    _build.load_library("maxpool")
-    log(f"built {path} in {time.perf_counter() - t0:.3f} s")
+    with ThreadPoolExecutor(len(SOURCES)) as pool_:  # one nvcc process per source
+        paths = list(pool_.map(_build.build, SOURCES))
+    for name in SOURCES:
+        _build.load_library(name)
+    log(f"built {paths} in {time.perf_counter() - t0:.3f} s")
 
 
 def pool_bound_ms(shape, dtype) -> tuple[float, str]:
@@ -155,6 +175,352 @@ def phase_pool_kernel(main_shape, main_dtype):
         else:
             log(f"maxpool {name} (NaN/-inf): exact")
     return timings[(main_shape, main_dtype)], max_err
+
+
+def bytes_bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time of a function on this card: its bytes (each input read
+    once, each output written once) at the HBM rate, or its f32 operations
+    at the non-tensor-core rate, whichever is larger."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def phase_pool_backward_kernel():
+    """The maxpool gradient kernel against its plain version, exactly, on
+    ReLU'd inputs (exact-zero ties) and integer inputs (positive ties)."""
+    import torch
+    import torch.nn.functional as F
+
+    from perseus_tpu_torch.models import pool
+
+    gen = torch.Generator().manual_seed(1)
+    cases = [
+        ("stem B=256 bf16", (256, 64, 128, 128), torch.bfloat16, "relu"),
+        ("stem B=256 f32", (256, 64, 128, 128), torch.float32, "relu"),
+        ("stem B=2 bf16 integer ties", (2, 64, 128, 128), torch.bfloat16, "ties"),
+        ("odd 2x8x31x17 f32 integer ties", (2, 8, 31, 17), torch.float32, "ties"),
+        ("odd 2x8x31x17 bf16 integer ties", (2, 8, 31, 17), torch.bfloat16, "ties"),
+        ("tiny 1x3x1x1 f32", (1, 3, 1, 1), torch.float32, "ties"),
+    ]
+    timings = {}
+    for name, shape, dtype, kind in cases:
+        x = torch.randn(shape, generator=gen)
+        x = torch.relu(x) if kind == "relu" else torch.round(x * 1.5)
+        x = x.to("cuda", dtype)
+        y = pool.max_pool_3x3_s2(x)
+        g = torch.randn(y.shape, generator=gen).to("cuda", dtype)
+        out = pool.max_pool_3x3_s2_backward(x, y, g)
+        torch.cuda.synchronize()
+        ref = pool.max_pool_3x3_s2_backward_reference(x, y, g)
+        if out.dtype != ref.dtype or not torch.equal(out, ref):
+            raise AssertionError(f"maxpool gradient kernel disagrees with its plain version on {name}")
+        if shape[0] != 256:
+            log(f"maxpool backward {name}: exact")
+            continue
+        # the library yardstick: PyTorch's own maxpool gradient from saved
+        # indices (it routes g to ONE argmax, so it is timed, never compared)
+        _, idx = F.max_pool2d(x, 3, 2, 1, return_indices=True)
+        lib = lambda: torch.ops.aten.max_pool2d_with_indices_backward(g, x, [3, 3], [2, 2], [1, 1], [1, 1], False, idx)  # noqa: E731
+        t_kernel = time_ms(lambda: pool.max_pool_3x3_s2_backward(x, y, g), iters=20, warmup=3)
+        t_plain = time_ms(lambda: pool.max_pool_3x3_s2_backward_reference(x, y, g), iters=5, warmup=1)
+        t_lib = time_ms(lib, iters=20, warmup=3)
+        size = torch.finfo(dtype).bits // 8
+        nbytes = (2 * x.numel() + 2 * y.numel()) * size  # x, y, g read; dx written
+        bound, by = bytes_bound_ms(nbytes, 7 * x.numel())  # <= 4 compares + 3 adds per input
+        timings[(shape, dtype)] = (t_kernel, t_plain, t_lib, bound, by)
+        log(
+            f"maxpool backward {name}: exact; kernel {t_kernel:.6f} ms, plain {t_plain:.6f} ms, "
+            f"max_pool2d_with_indices_backward {t_lib:.6f} ms, bound {bound:.6f} ms ({by})"
+        )
+    return timings[((256, 64, 128, 128), torch.bfloat16)], 0.0
+
+
+def _aug_inputs(gen, b, c, s, dtype):
+    """Random (B, C, S, S) augmentation input on the card: RGB in [0, 1],
+    metric depth, binary seg; image 0 and its donor (image 1) have no cube,
+    so image 0's transplant is rejected. Warp params with image 1 swapped."""
+    import torch
+
+    from perseus_tpu_torch.augment import fused, ops
+    from perseus_tpu_torch.augment.pipeline import AugmentationConfig
+
+    x = torch.rand((b, c, s, s), device="cuda", generator=gen)
+    if c > 3:
+        x[:, 3] = 3.0 + 11.0 * x[:, 3]
+    if c > 4:
+        x[:, 4] = (x[:, 4] < 0.4).float()
+        x[:2, 4] = 0.0
+    cfg = AugmentationConfig()
+    params = fused.sample_fused_params(gen, cfg, b, s, s, c)
+    aff = ops.sample_affine_params(gen, b, s, s)
+    aff["applied"][:] = True
+    aff["angle"][1] = 90.0  # |i00| < |i10|: the swap branch
+    swap, parts = ops._two_pass_params(ops._invert_affine(ops.affine_matrices(aff, s, s)))
+    donor = (torch.arange(b, device="cuda") + 1) % b
+    return x.to(dtype), params, donor, swap, torch.stack(parts, dim=-1)
+
+
+def aug_bytes(kind: str, b: int, c: int, s: int, dtype) -> float:
+    """Bytes each augmentation kernel must move: the image (and, for the
+    ultra kernel, the donor: another image) and fields (3 bf16 planes) and
+    plasma (1 bf16 plane) read once, the output written once."""
+    import torch
+
+    size = torch.finfo(dtype).bits // 8
+    images = 3 if kind == "ultra" else 2
+    return b * s * s * (images * c * size + 4 * 2)
+
+
+# f32 operations per output pixel, counted from the plain versions: the chain
+# (erase, gains, colour, hue, 5+5-tap blur, shadow, depth) ~150; the warp
+# 2 index planes and 4 taps per channel ~20 + 12 C; the transplant ~10 C
+AUG_OPS_PER_PX = {"chain": lambda c: 150, "warp": lambda c: 170 + 12 * c, "ultra": lambda c: 170 + 22 * c}
+
+
+def phase_augment_kernels():
+    """Each fused augmentation kernel against its plain version, at the
+    train shape (256, 5, 256, 256) in f32 and bf16 and at an odd shape."""
+    import torch
+
+    from perseus_tpu_torch.augment import fused
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    results = {}
+    for b, c, s, dtype, timed in [
+        (256, 5, 256, torch.float32, True),
+        (256, 5, 256, torch.bfloat16, True),
+        (3, 4, 37, torch.float32, False),
+        (3, 5, 37, torch.bfloat16, False),
+    ]:
+        x, params, donor, swap, wp = _aug_inputs(gen, b, c, s, dtype)
+        calls = {
+            "chain": (fused.fused_apply, fused.reference_apply, (x, params)),
+            "warp": (fused.fused_warp_apply, fused.fused_warp_reference, (x, wp, params)),
+        }
+        if c == 5:
+            calls["ultra"] = (fused.fused_ultra_apply, fused.fused_ultra_reference, (x, donor, swap, wp, params))
+        for kind, (kernel, plain, args) in calls.items():
+            out = kernel(*args)
+            torch.cuda.synchronize()
+            ref = plain(*args)
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = dict(atol=1e-5, rtol=0.0) if dtype == torch.float32 else BF16_TOL
+            if out.dtype != dtype or not torch.allclose(out.float(), ref.float(), **tol):
+                raise AssertionError(f"{kind} kernel disagrees with its plain version at {(b, c, s, s)} {dtype}: {err}")
+            label = f"{kind} {(b, c, s, s)} {str(dtype).removeprefix('torch.')}"
+            if not timed:
+                log(f"augment {label}: max abs err {err:.3e} (within {tol})")
+                continue
+            t_kernel = time_ms(lambda: kernel(*args), iters=20, warmup=3)
+            t_plain = time_ms(lambda: plain(*args), iters=3, warmup=1)
+            bound, by = bytes_bound_ms(aug_bytes(kind, b, c, s, dtype), b * s * s * AUG_OPS_PER_PX[kind](c))
+            results[(kind, dtype)] = (t_kernel, t_plain, bound, by, err)
+            log(
+                f"augment {label}: max abs err {err:.3e}; kernel {t_kernel:.6f} ms, plain {t_plain:.6f} ms, "
+                f"no single PyTorch call computes it; bound {bound:.6f} ms ({by})"
+            )
+        del x, params, calls
+        torch.cuda.empty_cache()
+    return results
+
+
+def _reset_counts():
+    from perseus_tpu_torch.augment import fused
+    from perseus_tpu_torch.models import pool
+
+    for fn in (pool.max_pool_3x3_s2, pool.max_pool_3x3_s2_backward, fused.fused_apply,
+               fused.fused_warp_apply, fused.fused_ultra_apply):
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    from perseus_tpu_torch.augment import fused
+    from perseus_tpu_torch.models import pool
+
+    return {
+        "max_pool_3x3_s2": pool.max_pool_3x3_s2.launches,
+        "max_pool_3x3_s2_backward": pool.max_pool_3x3_s2_backward.launches,
+        "fused_apply": fused.fused_apply.launches,
+        "fused_warp_apply": fused.fused_warp_apply.launches,
+        "fused_ultra_apply": fused.fused_ultra_apply.launches,
+    }
+
+
+def _train_setup(cfg, batch, device, seed=0):
+    import numpy as np
+    import torch
+
+    from perseus_tpu_torch.augment.pipeline import KeypointAugmentation
+    from perseus_tpu_torch.train import train
+
+    opt = train.make_optimizer(cfg)
+    state = train.init_state(cfg, opt, device=device)
+    aug = KeypointAugmentation(cfg.augmentation_config)
+    step = train.make_train_step(cfg, opt, aug)
+    use_transplant = cfg.augmentation_config.random_transplantation_with_depth
+    images = torch.from_numpy(train._prepare_aug_batch(batch, cfg.in_channels, use_transplant)).to(device)
+    coords = torch.from_numpy(np.asarray(batch["pixel_coordinates"], np.float32)).to(device)
+    return opt, state, aug, step, images, coords
+
+
+def phase_train():
+    """The default TrainConfig's step at full width, counted and timed."""
+    import dataclasses
+
+    import torch
+
+    from perseus_tpu_torch.augment.pipeline import AugmentationConfig
+    from perseus_tpu_torch.data.synthetic import make_batch
+    from perseus_tpu_torch.models import resnet
+    from perseus_tpu_torch.train import train
+    from perseus_tpu_torch.train.config import TrainConfig
+
+    cfg = TrainConfig()
+    t0 = time.perf_counter()
+    batch = make_batch(cfg.batch_size, cfg.input_resolution, cfg.input_resolution, cfg.n_keypoints, seed=cfg.random_seed)
+    opt, state, aug, step, images, coords = _train_setup(cfg, batch, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(cfg.random_seed)
+    log(f"train: batch {tuple(images.shape)} {images.dtype} made and uploaded in {time.perf_counter() - t0:.3f} s")
+    for _ in range(TRAIN_WARMUP):
+        state, loss = step(state, images, coords, gen)
+    torch.cuda.synchronize()
+
+    _reset_counts()
+    losses = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(TRAIN_STEPS):
+        state, loss = step(state, images, coords, gen)
+        losses.append(loss)
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    counts = _counts()
+    losses = torch.stack(losses)
+    expect = {"max_pool_3x3_s2": TRAIN_STEPS, "max_pool_3x3_s2_backward": TRAIN_STEPS, "fused_ultra_apply": TRAIN_STEPS,
+              "fused_apply": 0, "fused_warp_apply": 0}
+    if counts != expect:
+        raise AssertionError(f"train step launches {counts}, expected {expect} over {TRAIN_STEPS} steps")
+    finite = bool(torch.isfinite(losses).all()) and all(bool(torch.isfinite(v).all()) for v in state.params.values())
+    if not finite:
+        raise AssertionError("train step produced non-finite losses or params")
+    log(
+        f"train TrainConfig() batch {cfg.batch_size}: {step_ms:.4f} ms/step, "
+        f"{cfg.batch_size / step_ms * 1e3:.1f} img/s (CUDA events over {TRAIN_STEPS} steps); "
+        f"{wall_ms:.4f} ms/step host clock; losses {losses[0].item():.6f} -> {losses[-1].item():.6f}; "
+        f"launches per step {{{', '.join(f'{k}: {v / TRAIN_STEPS:g}' for k, v in counts.items())}}}"
+    )
+
+    # where a step's time goes: each part alone, CUDA events
+    b, c, h, w = images.shape
+    aug_ms = time_ms(lambda: aug.apply(images, coords, aug.sample(gen, b, h, w, c)), iters=10, warmup=2)
+    aug_images, target = aug.apply(images, coords, aug.sample(gen, b, h, w, c))
+    aug_images, target = aug_images[:, : cfg.in_channels], target.reshape(b, -1)
+    keys = list(state.params)
+    params = {k: v.detach().requires_grad_() for k, v in state.params.items()}
+
+    def fwd_bwd():
+        pred, _ = resnet.keypoint_cnn_apply(
+            {**params, **state.batch_stats}, aug_images, train=True, compute_dtype=torch.bfloat16
+        )
+        return torch.autograd.grad(train.smooth_l1_loss(pred, target), [params[k] for k in keys])
+
+    fb_ms = time_ms(fwd_bwd, iters=10, warmup=2)
+    grads = dict(zip(keys, fwd_bwd()))
+    opt_ms = time_ms(lambda: opt.update(grads, state.opt_state, state.params), iters=10, warmup=2)
+    log(
+        f"train breakdown: augmentation (sample + ultra kernel) {aug_ms:.4f} ms, forward + backward "
+        f"{fb_ms:.4f} ms, clip + AdamW {opt_ms:.4f} ms (each alone, CUDA events)"
+    )
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                state, loss = step(state, images, coords, gen)
+            torch.cuda.synchronize()
+        # the kernels alone: key_averages() also credits each aten op with
+        # the device time of the kernels it launched (counted twice if summed)
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 3 / 1e3
+        top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+        log(
+            f"train breakdown: traced 3 steps, kernels {busy_ms:.4f} ms/step, {len(kernels)} distinct kernels, "
+            f"{sum(e.count for e in kernels) / 3:.0f} launches/step; device busy share "
+            f"{busy_ms / step_ms:.6f} of the untraced {step_ms:.4f} ms/step"
+        )
+        for e in top:
+            log(f"train breakdown:   {e.key[:70]}: {e.self_device_time_total / 3:.1f} us/step ({e.count / 3:.0f} launches)")
+    except Exception as exc:  # the profiler is untried on this machine: report, do not fail
+        log(f"train breakdown: device busy share not measured (profiler: {exc!r})")
+    del params, grads, aug_images
+
+    # the other two augmentation branches through the same entry points
+    branch_counts = {}
+    for name, kernel, aug_kw, in_ch in [
+        ("warp + chain (4-channel input, no transplant)", "fused_warp_apply",
+         dict(random_transplantation_with_depth=False), 4),
+        ("chain alone (no affine)", "fused_apply", dict(random_affine=False), 4),
+    ]:
+        bcfg = dataclasses.replace(cfg, augmentation_config=AugmentationConfig(**aug_kw), in_channels=in_ch)
+        _, bstate, _, bstep, bimages, _ = _train_setup(bcfg, batch, "cuda")
+        bstate, _ = bstep(bstate, bimages, coords, gen)
+        _reset_counts()
+        for _ in range(3):
+            bstate, bloss = bstep(bstate, bimages, coords, gen)
+        torch.cuda.synchronize()
+        n = _counts()[kernel]
+        if n != 3 or not torch.isfinite(bloss):
+            raise AssertionError(f"train branch {name}: {kernel} launched {n} times in 3 steps, loss {bloss.item()}")
+        branch_counts[kernel] = n
+        log(f"train branch {name}: {kernel} launched {n} times in 3 steps, input {tuple(bimages.shape)}, loss {bloss.item():.6f}")
+        del bstate, bimages
+    del state, images
+    torch.cuda.empty_cache()
+
+    # the CUDA step against the CPU step: small f32 config, the same state
+    # (after one step, so AdamW's moments are not zero) and the same draws
+    small = dataclasses.replace(cfg, batch_size=4, amp=False, learning_rate=2e-4)
+    sbatch = make_batch(4, 64, 64, small.n_keypoints, seed=5)
+    _, cpu_state, saug, small_step, cpu_images, cpu_coords = _train_setup(small, sbatch, "cpu")
+    first = saug.sample(torch.Generator().manual_seed(1), 4, 64, 64, cpu_images.shape[1])
+    cpu_state, _ = small_step(cpu_state, cpu_images, cpu_coords, draws=first)
+    draws = saug.sample(torch.Generator().manual_seed(2), 4, 64, 64, cpu_images.shape[1])
+    to = lambda t, dev: {k: to(v, dev) for k, v in t.items()} if isinstance(t, dict) else t.to(dev)  # noqa: E731
+    gpu_state = train.TrainState(
+        to(cpu_state.params, "cuda"), to(cpu_state.batch_stats, "cuda"),
+        dataclasses.replace(cpu_state.opt_state, exp_avg=to(cpu_state.opt_state.exp_avg, "cuda"),
+                            exp_avg_sq=to(cpu_state.opt_state.exp_avg_sq, "cuda")),
+    )
+    old_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        new_gpu, gpu_loss = small_step(gpu_state, cpu_images.cuda(), cpu_coords.cuda(), draws=to(draws, "cuda"))
+    finally:
+        torch.backends.cudnn.deterministic = old_det
+    new_cpu, cpu_loss = small_step(cpu_state, cpu_images, cpu_coords, draws=draws)
+    loss_rel = abs(gpu_loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
+    diff = torch.cat([(new_gpu.params[k].cpu() - v).abs().flatten() for k, v in new_cpu.params.items()])
+    flips = (diff > 1e-4).float().mean().item()
+    stat_err = max((new_gpu.batch_stats[k].cpu() - v).abs().max().item() for k, v in new_cpu.batch_stats.items())
+    # as the CPU tests hold the port against JAX: AdamW moves a parameter
+    # whose moments are near zero by up to lr either way, so a rounding-level
+    # gradient difference may move it by up to 2 lr; such parameters must be
+    # rare, every other one agrees to 1e-4
+    if not (loss_rel < 1e-5 and stat_err < 1e-4 and diff.max().item() <= 2 * small.learning_rate + 1e-4 and flips < 0.01):
+        raise AssertionError(
+            f"CUDA and CPU train steps disagree: loss rel {loss_rel}, params max {diff.max().item()} "
+            f"(share > 1e-4: {flips}), stats {stat_err}"
+        )
+    log(
+        f"small f32 train step, CUDA vs CPU: loss rel diff {loss_rel:.3e}, batch stats max abs {stat_err:.3e}, "
+        f"params max abs {diff.max().item():.3e} with a share {flips:.3e} above 1e-4 (AdamW near-zero moments)"
+    )
+    return counts, branch_counts, step_ms
 
 
 def _serving_config(smoother=None):
@@ -235,16 +601,16 @@ def breakdown(pipeline, frames, sd) -> None:
                 _, _, carry, _ = pipeline(f, carry)
             torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-        events = prof.key_averages()
-        busy_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
-        launches = sum(e.count for e in events if getattr(e, "self_device_time_total", 0.0) > 0)
-        top = sorted(events, key=lambda e: getattr(e, "self_device_time_total", 0.0), reverse=True)[:5]
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in kernels)
+        launches = sum(e.count for e in kernels)
+        top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:5]
         log(
-            f"breakdown: traced 4 frames, device busy {busy_us / wall_us:.6f} of wall "
-            f"({busy_us:.1f} of {wall_us:.1f} us, profiler on), {launches / 4:.1f} kernels/frame"
+            f"breakdown: traced 4 frames, kernels {busy_us / 4:.1f} us/frame, device busy {busy_us / wall_us:.6f} "
+            f"of wall ({busy_us:.1f} of {wall_us:.1f} us, profiler on), {launches / 4:.1f} kernels/frame"
         )
         for e in top:
-            log(f"breakdown:   {e.key[:70]}: {getattr(e, 'self_device_time_total', 0.0) / 4:.1f} us/frame")
+            log(f"breakdown:   {e.key[:70]}: {e.self_device_time_total / 4:.1f} us/frame")
     except Exception as exc:  # the profiler is untried on this machine: report, do not fail
         log(f"breakdown: device busy share not measured (profiler: {exc!r})")
 
@@ -341,6 +707,15 @@ def phase_serving():
     return launches
 
 
+def _entry(name, source, replaces, launches, err, timing, library_ms):
+    t_kernel, t_plain, bound, by = timing
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+        "max_abs_err": err, "ms": t_kernel, "plain_ms": t_plain, "bound_ms": bound, "bound_by": by,
+        "library_ms": library_ms,
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -354,31 +729,37 @@ def main() -> int:
         phase_device()
         phase = "build"
         phase_build()
-        phase = "kernel"
-        main_shape, main_dtype = (1, 64, 128, 128), torch.bfloat16
-        (t_kernel, t_plain, t_lib, bound, by), max_err = phase_pool_kernel(main_shape, main_dtype)
+        phase = "kernel: maxpool forward"
+        fwd, fwd_err = phase_pool_kernel((256, 64, 128, 128), torch.bfloat16)
+        phase = "kernel: maxpool backward"
+        bwd, bwd_err = phase_pool_backward_kernel()
+        phase = "kernel: augmentation"
+        augk = phase_augment_kernels()
+        phase = "train"
+        train_counts, branch_counts, _ = phase_train()
         phase = "serving"
-        launches = phase_serving()
+        serving_launches = phase_serving()
     except Exception as exc:  # report which phase failed, with its traceback
         import traceback
 
         traceback.print_exc()
         print(f"[smoke] FAIL in phase {phase}: {exc}", file=sys.stderr)
         return 1
+    log(f"maxpool forward launches: {train_counts['max_pool_3x3_s2']} in {TRAIN_STEPS} train steps, "
+        f"{serving_launches} in {N_FRAMES} serving frames")
+    pool_src, aug_src = "perseus_tpu_torch/csrc/maxpool.cu", "perseus_tpu_torch/csrc/augment.cu"
+    aug = lambda kind: augk[(kind, torch.float32)]  # noqa: E731
     kernels = [
-        {
-            "name": "max_pool_3x3_s2",
-            "route": "cuda",
-            "source": "perseus_tpu_torch/csrc/maxpool.cu",
-            "replaces": "perseus_tpu/models/pool_pallas.py:55",
-            "launches": launches,
-            "max_abs_err": max_err,
-            "ms": t_kernel,
-            "plain_ms": t_plain,
-            "bound_ms": bound,
-            "bound_by": by,
-            "library_ms": t_lib,
-        }
+        _entry("max_pool_3x3_s2", pool_src, "perseus_tpu/models/pool_pallas.py:55",
+               train_counts["max_pool_3x3_s2"], fwd_err, (fwd[0], fwd[1], fwd[3], fwd[4]), fwd[2]),
+        _entry("max_pool_3x3_s2_backward", pool_src, "perseus_tpu/models/pool_pallas.py:79",
+               train_counts["max_pool_3x3_s2_backward"], bwd_err, (bwd[0], bwd[1], bwd[3], bwd[4]), bwd[2]),
+        _entry("fused_apply", aug_src, "perseus_tpu/augment/fused.py:333",
+               branch_counts["fused_apply"], aug("chain")[4], aug("chain")[:4], None),
+        _entry("fused_warp_apply", aug_src, "perseus_tpu/augment/fused.py:395",
+               branch_counts["fused_warp_apply"], aug("warp")[4], aug("warp")[:4], None),
+        _entry("fused_ultra_apply", aug_src, "perseus_tpu/augment/fused.py:413",
+               train_counts["fused_ultra_apply"], aug("ultra")[4], aug("ultra")[:4], None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

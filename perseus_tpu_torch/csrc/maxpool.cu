@@ -1,7 +1,8 @@
 // Stem maxpool of the ResNet-18 detector: MaxPool2d(kernel 3, stride 2,
-// padding 1) with -inf padding, forward, over an NCHW-contiguous batch.
+// padding 1) with -inf padding, forward and gradient, over NCHW-contiguous
+// batches.
 //
-// Replaces perseus_tpu/models/pool_pallas.py::_fwd_kernel (through
+// FORWARD. Replaces perseus_tpu/models/pool_pallas.py::_fwd_kernel (through
 // max_pool_3x3_s2_pallas). The TPU kernel packs the W parity split into
 // lanes, (B, H, W/2, 2C), and so needs even H and W; both exist only because
 // Mosaic cannot slice vectors with a stride. Here the kernel is a direct
@@ -18,6 +19,20 @@
 // input is stored as it was, so the output holds input values bit for bit.
 // NaN propagates like torch.maximum: the first NaN met in window order wins
 // (fmaxf would drop it).
+//
+// GRADIENT. Replaces perseus_tpu/models/pool_pallas.py::_bwd_kernel (through
+// _pool_bwd_call, the VJP of max_pool_3x3_s2_pallas): g[p, q] goes whole to
+// EVERY input equal to its window max y[p, q] (not to one argmax, as
+// F.max_pool2d's backward does). Gather form: one thread per INPUT element,
+// no atomics. Input row 2p is covered by window row p only and row 2p+1 by
+// window rows p and p+1 (the same for columns), from the geometry, so any H
+// and W work (the TPU kernel needs even sizes). The thread adds the terms of
+// the windows that cover it in the JAX order (p,q), (p+1,q), (p,q+1),
+// (p+1,q+1); a window past the last row or column adds an exact 0, as the
+// TPU kernel's -inf / 0 padding does. Compares and sums run in f32 and the
+// sum is cast once, so the plain version (models/pool.py) agrees bit for bit.
+// Bound on this card: bytes (x read once, y and g about once through L1/L2,
+// dx written once; at most 4 compares and 3 adds per input).
 //
 // Plain C interface for ctypes; each entry returns cudaGetLastError() after
 // the launch and 0 when there is nothing to do.
@@ -76,6 +91,55 @@ __global__ void maxpool3x3s2_fwd(const T* __restrict__ x, T* __restrict__ y, int
   }
 }
 
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+template <typename T>
+__global__ void maxpool3x3s2_bwd(const T* __restrict__ x, const T* __restrict__ y,
+                                 const T* __restrict__ g, T* __restrict__ dx, int64_t planes,
+                                 int h, int w, int ho, int wo) {
+  const int64_t n = planes * h * w;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    const int col = (int)(i % w);
+    const int64_t r = i / w;
+    const int row = (int)(r % h);
+    const int64_t plane = r / h;
+    const T* yp = y + plane * ho * wo;
+    const T* gp = g + plane * ho * wo;
+    const float xv = to_f32(x[i]);
+    const int p = row >> 1, q = col >> 1;
+    const bool odd_r = row & 1, odd_c = col & 1;
+    // term of window (pp, qq); 0 for the window past the last one
+    auto term = [&](int pp, int qq) -> float {
+      if (pp >= ho || qq >= wo) return 0.0f;
+      const int64_t k = (int64_t)pp * wo + qq;
+      return xv == to_f32(yp[k]) ? to_f32(gp[k]) : 0.0f;
+    };
+    float acc = term(p, q);
+    if (odd_r) acc = acc + term(p + 1, q);
+    if (odd_c) acc = acc + term(p, q + 1);
+    if (odd_r && odd_c) acc = acc + term(p + 1, q + 1);
+    dx[i] = from_f32<T>(acc);
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* y, const void* g, void* dx, int64_t planes, int h, int w,
+               int ho, int wo, void* stream) {
+  const int64_t n = planes * h * w;
+  if (n == 0) return 0;
+  const int threads = 256;
+  int64_t blocks = (n + threads - 1) / threads;
+  if (blocks > 65535LL * 32) blocks = 65535LL * 32;
+  maxpool3x3s2_bwd<T><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const T*)x, (const T*)y, (const T*)g, (T*)dx, planes, h, w, ho, wo);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* x, void* y, int64_t planes, int h, int w, int ho, int wo, void* stream) {
   const int64_t n = planes * ho * wo;
@@ -98,4 +162,16 @@ extern "C" int perseus_maxpool3x3s2_f32(const void* x, void* y, int64_t planes, 
 extern "C" int perseus_maxpool3x3s2_bf16(const void* x, void* y, int64_t planes, int h, int w,
                                          int ho, int wo, void* stream) {
   return launch<__nv_bfloat16>(x, y, planes, h, w, ho, wo, stream);
+}
+
+extern "C" int perseus_maxpool3x3s2_bwd_f32(const void* x, const void* y, const void* g, void* dx,
+                                            int64_t planes, int h, int w, int ho, int wo,
+                                            void* stream) {
+  return launch_bwd<float>(x, y, g, dx, planes, h, w, ho, wo, stream);
+}
+
+extern "C" int perseus_maxpool3x3s2_bwd_bf16(const void* x, const void* y, const void* g,
+                                             void* dx, int64_t planes, int h, int w, int ho,
+                                             int wo, void* stream) {
+  return launch_bwd<__nv_bfloat16>(x, y, g, dx, planes, h, w, ho, wo, stream);
 }

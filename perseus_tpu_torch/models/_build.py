@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ["NVCC_FLAGS", "build", "library_path", "load_library"]
+__all__ = ["NVCC_FLAGS", "EXTRA_FLAGS", "build", "library_path", "load_library"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -26,6 +26,14 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+# Per-source additions. augment.cu rounds every product and sum on its own,
+# as its plain PyTorch version does (the index planes of its warp must not
+# be contracted into FMAs differently per use).
+EXTRA_FLAGS = {"augment": ("-fmad=false",)}
+
+
+def _flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -44,7 +52,7 @@ def _nvcc() -> str:
 def library_path(name: str) -> str:
     """Where the build of ``csrc/<name>.cu`` lives (content-addressed)."""
     with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        digest = hashlib.sha256(f.read() + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 
@@ -56,7 +64,7 @@ def build(name: str) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(name), "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:

@@ -1,11 +1,20 @@
-"""The ResNet stem maxpool: ``MaxPool2d(3, stride=2, padding=1)``, forward.
+"""The ResNet stem maxpool: ``MaxPool2d(3, stride=2, padding=1)``, forward
+and gradient.
 
-Port of ``perseus_tpu/models/pool_pallas.py::max_pool_3x3_s2_pallas``
-(forward kernel ``_fwd_kernel``) as the hand-written CUDA kernel in
-``csrc/maxpool.cu``. :func:`max_pool_3x3_s2` launches that kernel for a CUDA
-tensor and takes the plain version, :func:`max_pool_3x3_s2_reference`, only
-for a tensor on the CPU. The gradient kernel comes with the training path;
-until then the wrapper refuses a CUDA input that needs a gradient.
+Port of ``perseus_tpu/models/pool_pallas.py::max_pool_3x3_s2_pallas``: the
+forward kernel ``_fwd_kernel`` and the gradient kernel ``_bwd_kernel``, as
+the hand-written CUDA kernels in ``csrc/maxpool.cu``.
+
+  * :func:`max_pool_3x3_s2` (forward) and :func:`max_pool_3x3_s2_backward`
+    launch those kernels for CUDA tensors and take their plain versions,
+    :func:`max_pool_3x3_s2_reference` and
+    :func:`max_pool_3x3_s2_backward_reference`, only for tensors on the CPU.
+  * :func:`max_pool_3x3_s2` is also the differentiable op the model calls:
+    a ``torch.autograd.Function`` over the two, on both devices, so the
+    gradient has the JAX kernel's tie semantics everywhere: ``g[p, q]`` goes
+    whole to EVERY input equal to its window max (autograd through
+    ``torch.maximum`` would split it in halves at a tie, and
+    ``F.max_pool2d``'s backward gives it to one argmax).
 """
 
 from __future__ import annotations
@@ -18,9 +27,15 @@ import torch.nn.functional as F
 
 from perseus_tpu_torch.models import _build
 
-__all__ = ["max_pool_3x3_s2", "max_pool_3x3_s2_reference", "pool_output_hw"]
+__all__ = [
+    "max_pool_3x3_s2",
+    "max_pool_3x3_s2_backward",
+    "max_pool_3x3_s2_reference",
+    "max_pool_3x3_s2_backward_reference",
+    "pool_output_hw",
+]
 
-_ENTRY = {torch.float32: "perseus_maxpool3x3s2_f32", torch.bfloat16: "perseus_maxpool3x3s2_bf16"}
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def pool_output_hw(h: int, w: int) -> tuple[int, int]:
@@ -41,49 +56,143 @@ def max_pool_3x3_s2_reference(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def max_pool_3x3_s2_backward_reference(
+    x: torch.Tensor, y: torch.Tensor, g: torch.Tensor
+) -> torch.Tensor:
+    """Plain PyTorch version of the gradient: the compare-and-route form of
+    ``pool_pallas.py::_bwd_kernel``, not autograd of the forward.
+
+    Input row 2p is covered by window row p only, row 2p+1 by window rows p
+    and p+1 (the same for columns), so each of the four parity sub-grids of
+    x sums 1, 2, 2 or 4 terms ``where(x == y[p', q'], g[p', q'], 0)``, in the
+    JAX order (p, q), (p+1, q), (p, q+1), (p+1, q+1). A window past the last
+    one is a -inf / 0 pad, as in the JAX kernel. Compares and sums run in
+    f32, with one cast to x's dtype; any H and W.
+    """
+    xf, yf, gf = x.float(), y.float(), g.float()
+    # one window past the end: y -inf (never equal to a finite x), g 0
+    yp = F.pad(yf, (0, 1, 0, 1), value=float("-inf"))
+    gp = F.pad(gf, (0, 1, 0, 1), value=0.0)
+    dx = torch.empty_like(xf)
+    for dr in (0, 1):
+        for dc in (0, 1):
+            xs = xf[..., dr::2, dc::2]
+            nr, nc = xs.shape[-2:]
+            acc = None
+            for a, b in ((0, 0), (1, 0), (0, 1), (1, 1)):
+                if a > dr or b > dc:
+                    continue
+                term = torch.where(
+                    xs == yp[..., a : a + nr, b : b + nc], gp[..., a : a + nr, b : b + nc], 0.0
+                )
+                acc = term if acc is None else acc + term
+            dx[..., dr::2, dc::2] = acc
+    return dx.to(x.dtype)
+
+
 @functools.cache
-def _entry(dtype: torch.dtype):
-    fn = getattr(_build.load_library("maxpool"), _ENTRY[dtype])
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+def _entry(name: str, dtype: torch.dtype, n_tensors: int):
+    fn = getattr(_build.load_library("maxpool"), f"perseus_{name}_{_SUFFIX[dtype]}")
+    fn.argtypes = [ctypes.c_void_p] * n_tensors + [
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
 
 
-def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
-    """3x3/stride-2/pad-1 max pool of an NCHW batch, f32 or bf16, any H, W.
+def _check(name: str, *tensors: torch.Tensor) -> None:
+    x = tensors[0]
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    for t in tensors:
+        if t.device != x.device or t.dtype != x.dtype:
+            raise TypeError(f"{name}: every tensor must share x's device and dtype")
+        if t.dtype not in _SUFFIX:
+            raise TypeError(f"{name}: dtype {t.dtype} (kernel takes float32, bfloat16)")
+        if t.dim() != 4:
+            raise ValueError(f"{name}: expected (B, C, H, W), got shape {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the kernel takes NCHW-contiguous tensors")
 
-    A CPU tensor takes the plain version. A CUDA tensor launches the CUDA
-    kernel on the current stream, or raises: for a dtype, rank or layout the
-    kernel does not take, for an input that needs a gradient, and for a
-    failed build or launch. Each launch adds one to ``max_pool_3x3_s2.launches``.
-    """
+
+def _launch(name: str, pointers: list, x: torch.Tensor, ho: int, wo: int) -> None:
+    b, c, h, w = x.shape
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _entry(name, x.dtype, len(pointers))(*pointers, b * c, h, w, ho, wo, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed, cudaError {err}")
+
+
+def _forward(x: torch.Tensor) -> torch.Tensor:
+    """The forward of :func:`max_pool_3x3_s2`, outside autograd."""
     if x.device.type == "cpu":
         return max_pool_3x3_s2_reference(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"max_pool_3x3_s2: unsupported device {x.device}")
-    if x.dtype not in _ENTRY:
-        raise TypeError(f"max_pool_3x3_s2: dtype {x.dtype} (kernel takes float32, bfloat16)")
-    if x.dim() != 4:
-        raise ValueError(f"max_pool_3x3_s2: expected (B, C, H, W), got shape {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError("max_pool_3x3_s2: the kernel takes an NCHW-contiguous tensor")
-    if x.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError("max_pool_3x3_s2: the gradient kernel is not ported yet")
+    _check("max_pool_3x3_s2", x)
     b, c, h, w = x.shape
     ho, wo = pool_output_hw(h, w)
     y = torch.empty((b, c, ho, wo), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _entry(x.dtype)(x.data_ptr(), y.data_ptr(), b * c, h, w, ho, wo, stream)
-    if err != 0:
-        raise RuntimeError(f"max_pool_3x3_s2: kernel launch failed, cudaError {err}")
+    _launch("maxpool3x3s2", [x.data_ptr(), y.data_ptr()], x, ho, wo)
     max_pool_3x3_s2.launches += 1
     return y
+
+
+def max_pool_3x3_s2_backward(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Gradient of the pool: dx from the input x, the output y and the
+    output's gradient g (all NCHW, one dtype, f32 or bf16, any H, W).
+
+    A CPU tensor takes the plain version. A CUDA tensor launches the
+    gradient kernel on the current stream, or raises as the forward does.
+    Each launch adds one to ``max_pool_3x3_s2_backward.launches``.
+    """
+    if x.device.type == "cpu":
+        return max_pool_3x3_s2_backward_reference(x, y, g)
+    _check("max_pool_3x3_s2_backward", x, y, g)
+    ho, wo = pool_output_hw(*x.shape[-2:])
+    if y.shape != (*x.shape[:2], ho, wo) or g.shape != y.shape:
+        raise ValueError(f"max_pool_3x3_s2_backward: shapes x {tuple(x.shape)} y {tuple(y.shape)} g {tuple(g.shape)}")
+    dx = torch.empty_like(x)
+    if dx.numel() == 0:
+        return dx
+    _launch("maxpool3x3s2_bwd", [x.data_ptr(), y.data_ptr(), g.data_ptr(), dx.data_ptr()], x, ho, wo)
+    max_pool_3x3_s2_backward.launches += 1
+    return dx
+
+
+max_pool_3x3_s2_backward.launches = 0
+
+
+class _MaxPool3x3S2(torch.autograd.Function):
+    """Forward kernel, and the gradient kernel as its backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = _forward(x)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return max_pool_3x3_s2_backward(x, y, g.contiguous())
+
+
+def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
+    """3x3/stride-2/pad-1 max pool of an NCHW batch, f32 or bf16, any H, W,
+    differentiable: its gradient is :func:`max_pool_3x3_s2_backward`.
+
+    A CPU tensor takes the plain version. A CUDA tensor launches the CUDA
+    kernel on the current stream, or raises: for a dtype, rank or layout the
+    kernel does not take, and for a failed build or launch. Each launch adds
+    one to ``max_pool_3x3_s2.launches``.
+    """
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"max_pool_3x3_s2: unsupported device {x.device}")
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return _forward(x)
+    return _MaxPool3x3S2.apply(x)
 
 
 max_pool_3x3_s2.launches = 0

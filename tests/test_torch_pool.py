@@ -93,3 +93,109 @@ def test_cuda_kernel_matches_reference(dtype):
         assert pool.max_pool_3x3_s2.launches == before + 1
         assert torch.equal(out.isnan(), ref.isnan())
         assert torch.equal(out.nan_to_num(0.0), ref.nan_to_num(0.0))
+
+
+def _jax_bwd():
+    import jax
+    import jax.numpy as jnp
+
+    from perseus_tpu.models import resnet as jax_resnet
+    from perseus_tpu.models.pool_pallas import _pool_bwd_call, _pool_fwd_call
+
+    return jax, jnp, jax_resnet, _pool_fwd_call, _pool_bwd_call
+
+
+def _tied_input(shape, seed):
+    """Integer-valued inputs: many exact ties inside each 3x3 window."""
+    rng = np.random.default_rng(seed)
+    return np.round(rng.normal(size=shape) * 1.5).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 24, 8), (1, 8, 8, 64)])
+def test_backward_reference_matches_pallas_kernel_exactly_with_ties(shape):
+    jax, jnp, _, fwd, bwd = _jax_bwd()
+    x = _tied_input(shape, seed=shape[-1])
+    y = fwd(jnp.asarray(x), True)
+    g = jnp.asarray(np.random.default_rng(1).normal(size=y.shape).astype(np.float32))
+    ref = bwd(jnp.asarray(x), y, g, True)
+    out = pool.max_pool_3x3_s2_backward_reference(_nchw(x, torch.float32), _nchw(np.asarray(y), torch.float32), _nchw(np.asarray(g), torch.float32))
+    _assert_same(out, ref)
+
+
+def test_backward_reference_bf16_matches_pallas_kernel():
+    """bf16 operands: both upcast, compare and sum in f32 and cast once, so
+    the results agree to the bf16 rounding of the same f32 sums (exactly,
+    here; the bound checked is one bf16 ulp)."""
+    jax, jnp, _, fwd, bwd = _jax_bwd()
+    x = jnp.asarray(_tied_input((2, 16, 24, 8), seed=3)).astype(jnp.bfloat16)
+    y = fwd(x, True)
+    g = jnp.asarray(np.random.default_rng(2).normal(size=y.shape).astype(np.float32)).astype(jnp.bfloat16)
+    ref = np.asarray(bwd(x, y, g, True).astype(jnp.float32))
+    t = lambda a: _nchw(np.asarray(a.astype(jnp.float32)), torch.bfloat16)  # noqa: E731
+    out = pool.max_pool_3x3_s2_backward_reference(t(x), t(y), t(g))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().permute(0, 2, 3, 1).numpy(), ref, rtol=2**-7, atol=2**-9)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_autograd_gradient_matches_jax_comparison_vjp(dtype):
+    """The differentiable op's gradient (the autograd.Function, on the CPU)
+    against the VJP of the JAX package's comparison maxpool, whose tie
+    semantics the Pallas kernel shares."""
+    jax, jnp, jax_resnet, _, _ = _jax_bwd()
+    jdt = jnp.dtype(str(dtype).removeprefix("torch."))
+    x = _tied_input((2, 12, 10, 6), seed=4)
+    gy = np.random.default_rng(5).normal(size=(2, 6, 5, 6)).astype(np.float32)
+    xj = jnp.asarray(x).astype(jdt)
+    _, vjp = jax.vjp(jax_resnet._max_pool_3x3_s2_cmp, xj)
+    (ref,) = vjp(jnp.asarray(gy).astype(jdt))
+    xt = _nchw(x, dtype).requires_grad_()
+    pool.max_pool_3x3_s2(xt).backward(_nchw(gy, dtype))
+    assert xt.grad.dtype == dtype
+    if dtype == torch.float32:
+        _assert_same(xt.grad, ref)
+    else:  # the XLA-level VJP sums ties in bf16, the kernels in f32: one ulp
+        np.testing.assert_allclose(
+            xt.grad.float().permute(0, 2, 3, 1).numpy(), np.asarray(ref.astype(jnp.float32)), rtol=2**-7, atol=2**-9
+        )
+
+
+def test_cpu_gradient_routes_the_whole_g_to_every_tie():
+    """All-zero input: every input ties with its windows' max, so its
+    gradient is the sum of g over the windows that cover it (1, 2 or 4 for
+    g = 1), not a half per tie (autograd through torch.maximum) and not a
+    single argmax (F.max_pool2d)."""
+    x = torch.zeros((1, 1, 6, 7), requires_grad=True)
+    y = pool.max_pool_3x3_s2(x)
+    y.backward(torch.ones_like(y))
+    # row 2p+1 lies in windows p and p+1, but the last odd row (5) only in
+    # window 2; the last column (6) is even
+    rows = torch.tensor([1, 2, 1, 2, 1, 1], dtype=torch.float32)
+    cols = torch.tensor([1, 2, 1, 2, 1, 2, 1], dtype=torch.float32)
+    assert torch.equal(x.grad[0, 0], rows[:, None] * cols[None, :])
+
+
+def test_backward_wrapper_on_cpu_takes_plain_version_without_counting():
+    x = torch.from_numpy(_tied_input((2, 3, 9, 8), seed=6))
+    y = pool.max_pool_3x3_s2(x)
+    g = torch.randn(y.shape, generator=torch.Generator().manual_seed(0))
+    before = pool.max_pool_3x3_s2_backward.launches
+    assert torch.equal(pool.max_pool_3x3_s2_backward(x, y, g), pool.max_pool_3x3_s2_backward_reference(x, y, g))
+    assert pool.max_pool_3x3_s2_backward.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_backward_kernel_matches_reference_exactly(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode (run chip_smoke.py on the card)")
+    gen = torch.Generator().manual_seed(7)
+    for shape in [(2, 64, 128, 128), (2, 8, 31, 17), (1, 3, 1, 1)]:
+        x = torch.round(torch.randn(shape, generator=gen) * 1.5).to("cuda", dtype).requires_grad_()
+        y = pool.max_pool_3x3_s2(x)
+        g = torch.randn(y.shape, generator=gen).to("cuda", dtype)
+        before = pool.max_pool_3x3_s2_backward.launches
+        y.backward(g)
+        torch.cuda.synchronize()
+        assert pool.max_pool_3x3_s2_backward.launches == before + 1
+        assert torch.equal(x.grad, pool.max_pool_3x3_s2_backward_reference(x.detach(), y.detach(), g))
