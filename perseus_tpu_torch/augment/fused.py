@@ -476,6 +476,7 @@ def _launch(
         )
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, cudaError {err}")
+    _WRAPPER[mode].launches += 1
     return out
 
 
@@ -485,9 +486,7 @@ def fused_apply(images: torch.Tensor, params: dict) -> torch.Tensor:
     ones. ``params`` is :func:`sample_fused_params`'s dict."""
     if images.device.type == "cpu":
         return reference_apply(images, params)
-    out = _launch("chain", images, params)
-    fused_apply.launches += 1
-    return out
+    return _launch("chain", images, params)
 
 
 def fused_warp_apply(images_sw: torch.Tensor, warp_params: torch.Tensor, params: dict) -> torch.Tensor:
@@ -497,9 +496,7 @@ def fused_warp_apply(images_sw: torch.Tensor, warp_params: torch.Tensor, params:
     with the plain version's rounding."""
     if images_sw.device.type == "cpu":
         return fused_warp_reference(images_sw, warp_params, params)
-    out = _launch("warp", images_sw, params, warp_params=warp_params)
-    fused_warp_apply.launches += 1
-    return out
+    return _launch("warp", images_sw, params, warp_params=warp_params)
 
 
 def fused_ultra_apply(
@@ -518,11 +515,12 @@ def fused_ultra_apply(
     swap-adjusted."""
     if images.device.type == "cpu":
         return fused_ultra_reference(images, donor_idx, swap, warp_params, params, lb, ub)
-    out = _launch("ultra", images, params, warp_params, donor_idx, swap, lb, ub)
-    fused_ultra_apply.launches += 1
-    return out
+    return _launch("ultra", images, params, warp_params, donor_idx, swap, lb, ub)
 
 
+# each wrapper's count of its kernel's launches, added to in _launch right
+# after the launch (an empty batch launches nothing and counts nothing)
+_WRAPPER = {"chain": fused_apply, "warp": fused_warp_apply, "ultra": fused_ultra_apply}
 fused_apply.launches = 0
 fused_warp_apply.launches = 0
 fused_ultra_apply.launches = 0

@@ -125,7 +125,7 @@ def _launch(name: str, pointers: list, x: torch.Tensor, ho: int, wo: int) -> Non
 
 
 def _forward(x: torch.Tensor) -> torch.Tensor:
-    """The forward of :func:`max_pool_3x3_s2`, outside autograd."""
+    """The forward of :func:`max_pool_3x3_s2`."""
     if x.device.type == "cpu":
         return max_pool_3x3_s2_reference(x)
     _check("max_pool_3x3_s2", x)
@@ -190,8 +190,6 @@ def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     """
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"max_pool_3x3_s2: unsupported device {x.device}")
-    if not (torch.is_grad_enabled() and x.requires_grad):
-        return _forward(x)
     return _MaxPool3x3S2.apply(x)
 
 

@@ -14,7 +14,9 @@ the two packages unchanged; this slice does not read them: ``n_epochs``,
 by the caller's ``PlateauScheduler``), ``distributed``,
 ``coordinator_address``, ``num_processes``, ``process_id``,
 ``oversample_*``, ``close_seg_threshold``, ``sample_weights_path`` and
-``ema_decay``. The comments below are the JAX package's, and name its
+``ema_decay``. Checkpoint loading is not ported yet: ``init_state`` refuses
+a config that sets ``init_checkpoint`` or ``init_backbone`` (and so never
+reads ``init_head``). The comments below are the JAX package's, and name its
 hardware where it had one.
 """
 

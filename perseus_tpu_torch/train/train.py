@@ -9,7 +9,8 @@ out-of-frame, spread and example-weight options of ``step_core`` ->
 global-norm clip -> AdamW, as optax's ``clip_by_global_norm`` + ``adamw``.
 
 Entry points: :func:`init_state`, :func:`make_optimizer`,
-:func:`make_train_step`, :func:`make_eval_step`. The state is functional,
+:func:`make_train_step` (:func:`make_loss_and_grads` and the optimizer),
+:func:`make_eval_step`. The state is functional,
 as in JAX: a step returns a new :class:`TrainState` and leaves its input
 unchanged. The epoch loop over the HDF5 dataset, checkpoints, EMA and data
 parallelism are not ported yet.
@@ -25,7 +26,7 @@ import torch
 
 from perseus_tpu_torch import resolve_device
 from perseus_tpu_torch.augment.pipeline import KeypointAugmentation
-from perseus_tpu_torch.models import convert, resnet
+from perseus_tpu_torch.models import resnet
 from perseus_tpu_torch.train.config import TrainConfig
 
 __all__ = [
@@ -37,6 +38,7 @@ __all__ = [
     "make_optimizer",
     "set_learning_rate",
     "init_state",
+    "make_loss_and_grads",
     "make_train_step",
     "make_eval_step",
 ]
@@ -192,35 +194,28 @@ def init_state(
     state_dict: dict[str, torch.Tensor] | None = None,
 ) -> TrainState:
     """The initial train state on ``device``: from ``state_dict`` (e.g.
-    ``convert.from_jax_params`` of JAX parameters) when given, else from
-    ``cfg.init_checkpoint`` (a reference-layout ``.pth``), else a random
-    init drawn from ``cfg.random_seed`` by an explicit generator;
-    ``cfg.init_backbone`` then overwrites the backbone (and the head with
-    ``cfg.init_head``). A fresh optimizer state."""
+    ``convert.from_jax_params`` of JAX parameters) when given, else a random
+    init drawn from ``cfg.random_seed`` by an explicit generator. A fresh
+    optimizer state. Loading ``cfg.init_checkpoint`` / ``cfg.init_backbone``
+    is not ported yet, and a config that sets either is refused."""
+    if cfg.init_checkpoint or cfg.init_backbone:
+        raise NotImplementedError("init_state: init_checkpoint / init_backbone loading is not ported yet")
     dev = resolve_device(device)
-    if state_dict is None and cfg.init_checkpoint:
-        state_dict = convert.load_model(cfg.init_checkpoint)
     if state_dict is None:
         model = resnet.KeypointCNN(
             cfg.n_keypoints, cfg.in_channels, head=cfg.head, feat_hw=cfg.input_resolution // 32,
             device="cpu", generator=torch.Generator().manual_seed(cfg.random_seed),
         )
         state_dict = {k: v.detach() for k, v in model.state_dict().items()}
-        if cfg.init_backbone:
-            pre = convert.load_model(cfg.init_backbone)
-            for k, v in pre.items():
-                if k in state_dict and (cfg.init_head or not k.startswith("fc.")):
-                    if state_dict[k].shape != v.shape:
-                        raise ValueError(f"init_backbone shape mismatch at {k}: {tuple(v.shape)} vs {tuple(state_dict[k].shape)}")
-                    state_dict[k] = v
     params = {k: v.to(dev, torch.float32).clone() for k, v in state_dict.items() if not _is_stat(k)}
     stats = {k: v.to(dev, torch.float32).clone() for k, v in state_dict.items() if _is_stat(k)}
     return TrainState(params, stats, optimizer.init(params))
 
 
-def make_train_step(cfg: TrainConfig, optimizer: ClipAdamW, train_augment: KeypointAugmentation):
-    """The train step ``step(state, images_aug, coords, gen=None,
-    weights=None, draws=None) -> (new_state, loss)``.
+def make_loss_and_grads(cfg: TrainConfig, train_augment: KeypointAugmentation):
+    """The train step up to the optimizer: ``loss_and_grads(state,
+    images_aug, coords, gen=None, weights=None, draws=None) -> (loss, grads,
+    new_batch_stats)``, ``grads`` a dict over ``state.params``' keys.
 
     ``images_aug`` (B, C, H, W) on the state's device, ``coords`` (B, K, 2)
     pixels, ``gen`` the augmentation's generator, ``weights`` (B,) the
@@ -230,7 +225,7 @@ def make_train_step(cfg: TrainConfig, optimizer: ClipAdamW, train_augment: Keypo
     """
     compute_dtype = torch.bfloat16 if cfg.amp else torch.float32
 
-    def step(state: TrainState, images_aug, coords, gen=None, weights=None, draws=None):
+    def loss_and_grads(state: TrainState, images_aug, coords, gen=None, weights=None, draws=None):
         if cfg.use_example_weights and weights is None:
             raise ValueError("cfg.use_example_weights: the step needs the batch's weights")
         b, c, h, w = images_aug.shape
@@ -289,8 +284,21 @@ def make_train_step(cfg: TrainConfig, optimizer: ClipAdamW, train_augment: Keypo
             )
             loss = loss_fn(pred)
             grads = torch.autograd.grad(loss, [params[k] for k in keys])
-        new_params, new_opt = optimizer.update(dict(zip(keys, grads)), state.opt_state, state.params)
-        return TrainState(new_params, new_stats, new_opt), loss.detach()
+        return loss.detach(), dict(zip(keys, grads)), new_stats
+
+    return loss_and_grads
+
+
+def make_train_step(cfg: TrainConfig, optimizer: ClipAdamW, train_augment: KeypointAugmentation):
+    """The train step ``step(state, images_aug, coords, gen=None,
+    weights=None, draws=None) -> (new_state, loss)``: :func:`make_loss_and_grads`'s
+    arguments, then clip + AdamW."""
+    loss_and_grads = make_loss_and_grads(cfg, train_augment)
+
+    def step(state: TrainState, images_aug, coords, gen=None, weights=None, draws=None):
+        loss, grads, new_stats = loss_and_grads(state, images_aug, coords, gen, weights, draws)
+        new_params, new_opt = optimizer.update(grads, state.opt_state, state.params)
+        return TrainState(new_params, new_stats, new_opt), loss
 
     return step
 

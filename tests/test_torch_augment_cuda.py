@@ -45,3 +45,24 @@ def test_cuda_kernels_match_plain_versions(storage):
             assert kernel.launches == before + 1
             tol = dict(atol=1e-5, rtol=0) if storage == torch.float32 else BF16_TOL
             torch.testing.assert_close(out.float(), plain(*args).float(), **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_count_only_launches():
+    """An empty batch launches no kernel, so it adds nothing to a count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels have no CPU mode (run chip_smoke.py on the card)")
+    s = 16
+    x = torch.empty((0, 5, s, s), device="cuda")
+    p = {
+        "scalars": torch.zeros((0, fused.N_SCALARS), device="cuda"),
+        "fields": torch.zeros((0, 3, s, s), dtype=torch.bfloat16, device="cuda"),
+        "plasma": torch.zeros((0, s, s), dtype=torch.bfloat16, device="cuda"),
+    }
+    wp = torch.zeros((0, 6), device="cuda")
+    idx = torch.zeros((0,), dtype=torch.int32, device="cuda")
+    for kernel, args in [(fused.fused_apply, (x, p)), (fused.fused_warp_apply, (x, wp, p)),
+                         (fused.fused_ultra_apply, (x, idx, idx.bool(), wp, p))]:
+        before = kernel.launches
+        assert kernel(*args).shape == x.shape
+        assert kernel.launches == before

@@ -341,3 +341,29 @@ def test_set_learning_rate_and_prepare_batch():
         ref = jtrain._prepare_aug_batch(batch, in_ch, transplant)
         assert port.shape == (2, expect, 16, 20) and port.dtype == np.float32
         np.testing.assert_array_equal(np.moveaxis(port, 1, -1), ref)
+
+
+@pytest.mark.parametrize("field", ["init_checkpoint", "init_backbone"])
+def test_init_state_refuses_checkpoint_loading(field):
+    """Checkpoint loading is not ported: a config that asks for it is refused,
+    not quietly given a random init."""
+    cfg = dataclasses.replace(TrainConfig(), **{field: "model.pth"})
+    with pytest.raises(NotImplementedError):
+        train.init_state(cfg, train.make_optimizer(cfg), device="cpu")
+
+
+def test_train_step_is_loss_and_grads_then_the_optimizer():
+    """make_train_step is make_loss_and_grads followed by clip + AdamW, bit
+    for bit (chip_smoke.py compares the gradients of the two devices)."""
+    _, cfg = _cfgs(OFF)
+    opt = train.make_optimizer(cfg)
+    state = train.init_state(cfg, opt, device="cpu")
+    aug = KeypointAugmentation(cfg.augmentation_config)
+    _, nchw, coords = _batch()
+    args = (state, torch.from_numpy(nchw), torch.from_numpy(coords), torch.Generator().manual_seed(0))
+    new, loss = train.make_train_step(cfg, opt, aug)(*args)
+    loss2, grads, stats = train.make_loss_and_grads(cfg, aug)(*args)
+    params, _ = opt.update(grads, state.opt_state, state.params)
+    assert torch.equal(loss, loss2) and set(grads) == set(state.params)
+    assert all(torch.equal(new.params[k], v) for k, v in params.items())
+    assert all(torch.equal(new.batch_stats[k], v) for k, v in stats.items())
