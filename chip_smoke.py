@@ -18,7 +18,11 @@ non-zero exit:
      4-channel warp branch's input), with a swapped image and a rejected
      transplant for the ultra kernel; CUDA-event times of the kernel, the
      plain version and, where one exists, the PyTorch library call that
-     computes the same function;
+     computes the same function; the two-pass affine warp (#3) at
+     (256, 5, 256, 256) f32 with affines to +-90 deg and shear 10 deg (atol
+     1e-5), exact at the identity, and at (3, 5, 37, 37) and (2, 4, 129,
+     129), timed beside F.grid_sample (a direct 2-D bilinear warp, another
+     function: a yardstick only);
   4. the detector train step at the default TrainConfig: batch 256 of
      5-channel 256x256 synthetic frames, fused ultra augmentation, ResNet-18
      in bf16 with f32 params, SmoothL1, clip + AdamW; 3 warm-up steps, then
@@ -31,6 +35,15 @@ non-zero exit:
      package) on a small f32 configuration, same state, same draws: loss,
      batch stats, each gradient leaf before the optimizer, and clip + AdamW
      on the same gradients;
+  4b. the trainer's device-resident-data configuration with the unfused
+     augmentation: default TrainConfig, KeypointAugmentation(fused=False), a
+     split of 1,024 synthetic 5-channel 256x256 rows on the card, 3 warm-up
+     steps, then 20 timed steps in one make_device_data_epoch_fn call with
+     every kernel's launches counted over exactly those steps (#3, #1, #2
+     one each per step; #4-#6 none); finite losses and params; where a step's
+     time goes; the eval step over a 300-row val split (not a multiple of
+     256: every row counted once); and the unfused pipeline on the card
+     against the CPU on a small f32 configuration with the same draws;
   5. the serving path at full width: StreamingPipeline, RGBD 376x672 frames
      cropped to 256x256, ResNet-18 folded bf16, fixed-lag smoother window 24
      (GN-4), random weights from a seed, 32 frames. Every output finite; the
@@ -41,8 +54,8 @@ non-zero exit:
      alone at batch 256; and the CUDA pipeline against the CPU pipeline on a
      small f32 configuration.
 
-Prints the card line, then one JSON line describing each kernel, then, as the
-last line, {"ok": true, "device": {...}}.
+Prints each phase's wall time, the card line, then one JSON line describing
+each kernel, then, as the last line, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -330,26 +343,102 @@ def phase_augment_kernels():
     return results
 
 
-def _reset_counts():
-    from perseus_tpu_torch.augment import fused
+def _warp_params(gen, b, s, identity=False):
+    """Two-pass parameters of random affines drawn at degrees 90, shear 10
+    deg (every one applied), or of the identity: (swap (B,), params (B, 6),
+    forward affines (B, 3, 3))."""
+    import torch
+
+    from perseus_tpu_torch.augment import ops
+
+    aff = ops.sample_affine_params(gen, b, s, s, degrees=90.0, shear=10.0)
+    aff["applied"][:] = not identity
+    mats = ops.affine_matrices(aff, s, s)
+    swap, parts = ops._two_pass_params(ops._invert_affine(mats))
+    return swap, torch.stack(parts, dim=-1), mats
+
+
+def _grid_sample_warp(x, mats):
+    """The same affines as one F.grid_sample call (a direct 2-D bilinear
+    warp, zero padding, align_corners): the grid maps each normalized output
+    pixel through A^-1. Not the two-pass function: a yardstick only."""
+    import torch
+    import torch.nn.functional as F
+
+    from perseus_tpu_torch.augment import ops
+
+    b, _, h, w = x.shape
+    inv = torch.cat([ops._invert_affine(mats), mats[:, 2:]], dim=1)
+    to_px = torch.tensor([[(w - 1) / 2, 0, (w - 1) / 2], [0, (h - 1) / 2, (h - 1) / 2], [0, 0, 1]], device=x.device)
+    theta = (torch.linalg.inv(to_px) @ inv @ to_px)[:, :2]
+    grid = F.affine_grid(theta, list(x.shape), align_corners=True)
+    return lambda: F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+
+def phase_warp_kernel():
+    """The two-pass warp kernel (#3) against its plain version on the card:
+    the unfused train path's shape (256, 5, 256, 256) f32 with affines to
+    +-90 deg (some images swapped), exact at the identity, and odd sizes."""
+    import torch
+
+    from perseus_tpu_torch.augment import warp
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    result = None
+    for b, c, s, timed in [(256, 5, 256, True), (3, 5, 37, False), (2, 4, 129, False)]:
+        x = torch.rand((b, c, s, s), device="cuda", generator=gen)
+        x[:, 3:4] = 3.0 + 11.0 * x[:, 3:4]
+        swap, wp, mats = _warp_params(gen, b, s)
+        # both orientations in every case (the flag is an input of the
+        # function both sides compute, so setting it keeps the comparison)
+        swap[0], swap[-1] = False, True
+        out = warp.warp_affine_two_pass(x, swap, wp)
+        torch.cuda.synchronize()
+        ref = warp.warp_affine_two_pass_reference(x, swap, wp)
+        err = (out - ref).abs().max().item()
+        if out.dtype != torch.float32 or out.shape != x.shape or not err <= 1e-5:
+            raise AssertionError(f"warp kernel disagrees with its plain version at {(b, c, s, s)}: {err}")
+        # the identity: no swap, exact on both
+        eye_swap, eye_wp, _ = _warp_params(gen, b, s, identity=True)
+        eye = warp.warp_affine_two_pass(x, eye_swap, eye_wp)
+        if eye_swap.any() or not (torch.equal(eye, x) and torch.equal(warp.warp_affine_two_pass_reference(x, eye_swap, eye_wp), x)):
+            raise AssertionError(f"warp kernel or its plain version is not exact at the identity at {(b, c, s, s)}")
+        label = f"warp {(b, c, s, s)} f32 ({int(swap.sum())} of {b} swapped)"
+        if not timed:
+            log(f"{label}: max abs err {err:.3e} (within 1e-5); exact at the identity")
+            continue
+        t_kernel = time_ms(lambda: warp.warp_affine_two_pass(x, swap, wp), iters=20, warmup=3)
+        t_plain = time_ms(lambda: warp.warp_affine_two_pass_reference(x, swap, wp), iters=3, warmup=1)
+        t_grid = time_ms(_grid_sample_warp(x, mats), iters=20, warmup=3)
+        # each input read once, the output written once; per output pixel
+        # ~22 f32 operations for the taps and 7 per channel for the blend
+        bound, by = bytes_bound_ms(2 * x.numel() * 4 + wp.numel() * 4 + b * 4, b * s * s * (22 + 7 * c))
+        result = (t_kernel, t_plain, bound, by, err)
+        log(
+            f"{label}: max abs err {err:.3e}; exact at the identity; kernel {t_kernel:.6f} ms, plain "
+            f"{t_plain:.6f} ms, bound {bound:.6f} ms ({by}); F.grid_sample on the same affines (a direct "
+            f"2-D bilinear warp, not this function: a yardstick) {t_grid:.6f} ms"
+        )
+        del x, out, ref, eye
+        torch.cuda.empty_cache()
+    return result
+
+
+def _counted():
+    from perseus_tpu_torch.augment import fused, warp
     from perseus_tpu_torch.models import pool
 
-    for fn in (pool.max_pool_3x3_s2, pool.max_pool_3x3_s2_backward, fused.fused_apply,
-               fused.fused_warp_apply, fused.fused_ultra_apply):
+    return (pool.max_pool_3x3_s2, pool.max_pool_3x3_s2_backward, fused.fused_apply,
+            fused.fused_warp_apply, fused.fused_ultra_apply, warp.warp_affine_two_pass)
+
+
+def _reset_counts():
+    for fn in _counted():
         fn.launches = 0
 
 
 def _counts() -> dict:
-    from perseus_tpu_torch.augment import fused
-    from perseus_tpu_torch.models import pool
-
-    return {
-        "max_pool_3x3_s2": pool.max_pool_3x3_s2.launches,
-        "max_pool_3x3_s2_backward": pool.max_pool_3x3_s2_backward.launches,
-        "fused_apply": fused.fused_apply.launches,
-        "fused_warp_apply": fused.fused_warp_apply.launches,
-        "fused_ultra_apply": fused.fused_ultra_apply.launches,
-    }
+    return {fn.__name__: fn.launches for fn in _counted()}
 
 
 def _train_setup(cfg, batch, device, seed=0):
@@ -369,6 +458,60 @@ def _train_setup(cfg, batch, device, seed=0):
     return opt, state, aug, step, images, coords
 
 
+def step_breakdown(label, aug_kind, cfg, state, aug, opt, images, coords, gen, step_ms, traced_steps):
+    """Where a train step's time goes: the augmentation (sampling + apply),
+    forward + backward and clip + AdamW, each alone (CUDA events), and the
+    device busy share of 3 steps run by ``traced_steps`` under
+    torch.profiler (kernels only) against the untraced ``step_ms``."""
+    import torch
+
+    from perseus_tpu_torch.models import resnet
+    from perseus_tpu_torch.train import train
+
+    b, c, h, w = images.shape
+    aug_ms = time_ms(lambda: aug.apply(images, coords, aug.sample(gen, b, h, w, c)), iters=10, warmup=2)
+    aug_images, target = aug.apply(images, coords, aug.sample(gen, b, h, w, c))
+    aug_images, target = aug_images[:, : cfg.in_channels], target.reshape(b, -1)
+    keys = list(state.params)
+    params = {k: v.detach().requires_grad_() for k, v in state.params.items()}
+
+    def fwd_bwd():
+        pred, _ = resnet.keypoint_cnn_apply(
+            {**params, **state.batch_stats}, aug_images, train=True, compute_dtype=torch.bfloat16
+        )
+        return torch.autograd.grad(train.smooth_l1_loss(pred, target), [params[k] for k in keys])
+
+    fb_ms = time_ms(fwd_bwd, iters=10, warmup=2)
+    grads = dict(zip(keys, fwd_bwd()))
+    opt_ms = time_ms(lambda: opt.update(grads, state.opt_state, state.params), iters=10, warmup=2)
+    log(
+        f"{label} breakdown: augmentation ({aug_kind}) {aug_ms:.4f} ms, forward + backward "
+        f"{fb_ms:.4f} ms, clip + AdamW {opt_ms:.4f} ms (each alone, CUDA events)"
+    )
+    del params, grads, aug_images
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            traced_steps()
+            torch.cuda.synchronize()
+        # the kernels alone: key_averages() also credits each aten op with
+        # the device time of the kernels it launched (counted twice if summed)
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 3 / 1e3
+        top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+        log(
+            f"{label} breakdown: traced 3 steps, kernels {busy_ms:.4f} ms/step, {len(kernels)} distinct kernels, "
+            f"{sum(e.count for e in kernels) / 3:.0f} launches/step; device busy share "
+            f"{busy_ms / step_ms:.6f} of the untraced {step_ms:.4f} ms/step"
+        )
+        for e in top:
+            log(f"{label} breakdown:   {e.key[:70]}: {e.self_device_time_total / 3:.1f} us/step ({e.count / 3:.0f} launches)")
+    except Exception as exc:  # the profiler is untried on this machine: report, do not fail
+        log(f"{label} breakdown: device busy share not measured (profiler: {exc!r})")
+
+
 def phase_train():
     """The default TrainConfig's step at full width, counted and timed."""
     import dataclasses
@@ -377,8 +520,6 @@ def phase_train():
 
     from perseus_tpu_torch.augment.pipeline import AugmentationConfig
     from perseus_tpu_torch.data.synthetic import make_batch
-    from perseus_tpu_torch.models import resnet
-    from perseus_tpu_torch.train import train
     from perseus_tpu_torch.train.config import TrainConfig
 
     cfg = TrainConfig()
@@ -406,7 +547,7 @@ def phase_train():
     counts = _counts()
     losses = torch.stack(losses)
     expect = {"max_pool_3x3_s2": TRAIN_STEPS, "max_pool_3x3_s2_backward": TRAIN_STEPS, "fused_ultra_apply": TRAIN_STEPS,
-              "fused_apply": 0, "fused_warp_apply": 0}
+              "fused_apply": 0, "fused_warp_apply": 0, "warp_affine_two_pass": 0}
     if counts != expect:
         raise AssertionError(f"train step launches {counts}, expected {expect} over {TRAIN_STEPS} steps")
     finite = bool(torch.isfinite(losses).all()) and all(bool(torch.isfinite(v).all()) for v in state.params.values())
@@ -419,50 +560,12 @@ def phase_train():
         f"launches per step {{{', '.join(f'{k}: {v / TRAIN_STEPS:g}' for k, v in counts.items())}}}"
     )
 
-    # where a step's time goes: each part alone, CUDA events
-    b, c, h, w = images.shape
-    aug_ms = time_ms(lambda: aug.apply(images, coords, aug.sample(gen, b, h, w, c)), iters=10, warmup=2)
-    aug_images, target = aug.apply(images, coords, aug.sample(gen, b, h, w, c))
-    aug_images, target = aug_images[:, : cfg.in_channels], target.reshape(b, -1)
-    keys = list(state.params)
-    params = {k: v.detach().requires_grad_() for k, v in state.params.items()}
+    def traced_steps():
+        st = state
+        for _ in range(3):
+            st, _ = step(st, images, coords, gen)
 
-    def fwd_bwd():
-        pred, _ = resnet.keypoint_cnn_apply(
-            {**params, **state.batch_stats}, aug_images, train=True, compute_dtype=torch.bfloat16
-        )
-        return torch.autograd.grad(train.smooth_l1_loss(pred, target), [params[k] for k in keys])
-
-    fb_ms = time_ms(fwd_bwd, iters=10, warmup=2)
-    grads = dict(zip(keys, fwd_bwd()))
-    opt_ms = time_ms(lambda: opt.update(grads, state.opt_state, state.params), iters=10, warmup=2)
-    log(
-        f"train breakdown: augmentation (sample + ultra kernel) {aug_ms:.4f} ms, forward + backward "
-        f"{fb_ms:.4f} ms, clip + AdamW {opt_ms:.4f} ms (each alone, CUDA events)"
-    )
-    try:
-        from torch.profiler import ProfilerActivity, profile
-
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                state, loss = step(state, images, coords, gen)
-            torch.cuda.synchronize()
-        # the kernels alone: key_averages() also credits each aten op with
-        # the device time of the kernels it launched (counted twice if summed)
-        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 3 / 1e3
-        top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
-        log(
-            f"train breakdown: traced 3 steps, kernels {busy_ms:.4f} ms/step, {len(kernels)} distinct kernels, "
-            f"{sum(e.count for e in kernels) / 3:.0f} launches/step; device busy share "
-            f"{busy_ms / step_ms:.6f} of the untraced {step_ms:.4f} ms/step"
-        )
-        for e in top:
-            log(f"train breakdown:   {e.key[:70]}: {e.self_device_time_total / 3:.1f} us/step ({e.count / 3:.0f} launches)")
-    except Exception as exc:  # the profiler is untried on this machine: report, do not fail
-        log(f"train breakdown: device busy share not measured (profiler: {exc!r})")
-    del params, grads, aug_images
+    step_breakdown("train", "sample + ultra kernel", cfg, state, aug, opt, images, coords, gen, step_ms, traced_steps)
 
     # the other two augmentation branches through the same entry points
     branch_counts = {}
@@ -587,6 +690,139 @@ def train_cuda_vs_cpu(cfg, dev="cuda"):
         f"||diff|| / ||grad|| max {rel[worst]:.3e} ({worst}; conv1.weight {rel['conv1.weight']:.3e}, bn1.bias "
         f"{rel['bn1.bias']:.3e}), clip + AdamW on the same gradients max abs {opt_err:.3e}"
     )
+
+
+VAL_ROWS = 300  # not a multiple of the batch: the eval mask's filler rows
+
+
+def _device_split(cfg, n, seed):
+    """A device-resident split of ``n`` synthetic rows: the (N, 5, H, W) f32
+    augmentation input (RGB, depth, seg) and (N, K, 2) keypoints, on the card."""
+    import numpy as np
+    import torch
+
+    from perseus_tpu_torch.data.synthetic import make_batch
+    from perseus_tpu_torch.train import train
+
+    batch = make_batch(n, cfg.input_resolution, cfg.input_resolution, cfg.n_keypoints, seed=seed)
+    images = torch.from_numpy(train._prepare_aug_batch(batch, cfg.in_channels, True)).to("cuda")
+    coords = torch.from_numpy(np.asarray(batch["pixel_coordinates"], np.float32)).to("cuda")
+    return images, coords
+
+
+def phase_train_unfused():
+    """The trainer's device-resident-data configuration with the unfused
+    augmentation, at the default TrainConfig, counted and timed."""
+    import numpy as np
+    import torch
+
+    from perseus_tpu_torch.augment.pipeline import KeypointAugmentation
+    from perseus_tpu_torch.train import train
+    from perseus_tpu_torch.train.config import TrainConfig
+
+    cfg = TrainConfig()
+    b = cfg.batch_size
+    t0 = time.perf_counter()
+    ds_images, ds_coords = _device_split(cfg, 4 * b, seed=cfg.random_seed)
+    log(f"train unfused: split {tuple(ds_images.shape)} {ds_images.dtype} "
+        f"({ds_images.numel() * 4 / 1e9:.3f} GB) made and uploaded in {time.perf_counter() - t0:.3f} s")
+    opt = train.make_optimizer(cfg)
+    state = train.init_state(cfg, opt, device="cuda")
+    aug = KeypointAugmentation(cfg.augmentation_config, fused=False)
+    epoch_fn = train.make_device_data_epoch_fn(cfg, opt, aug)
+    # epoch order: a permutation of the split per epoch, as the JAX trainer draws it
+    rng = np.random.default_rng(cfg.random_seed)
+    order = np.concatenate([rng.permutation(len(ds_images)) for _ in range(7)])
+    idx = torch.from_numpy(order[: (TRAIN_WARMUP + TRAIN_STEPS) * b].reshape(-1, b)).to("cuda")
+    state, _ = epoch_fn(state, ds_images, ds_coords, idx[:TRAIN_WARMUP], cfg.random_seed, 0)
+    torch.cuda.synchronize()
+
+    _reset_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    state, losses = epoch_fn(state, ds_images, ds_coords, idx[TRAIN_WARMUP:], cfg.random_seed, TRAIN_WARMUP)
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    counts = _counts()
+    expect = {"max_pool_3x3_s2": TRAIN_STEPS, "max_pool_3x3_s2_backward": TRAIN_STEPS, "fused_ultra_apply": 0,
+              "fused_apply": 0, "fused_warp_apply": 0, "warp_affine_two_pass": TRAIN_STEPS}
+    if counts != expect:
+        raise AssertionError(f"unfused train launches {counts}, expected {expect} over {TRAIN_STEPS} steps")
+    finite = bool(torch.isfinite(losses).all()) and all(bool(torch.isfinite(v).all()) for v in state.params.values())
+    if losses.shape != (TRAIN_STEPS,) or not finite:
+        raise AssertionError(f"unfused train epoch: losses {tuple(losses.shape)}, finite {finite}")
+    log(
+        f"train unfused, device-resident split, TrainConfig() batch {b}: {step_ms:.4f} ms/step, "
+        f"{b / step_ms * 1e3:.1f} img/s (CUDA events over {TRAIN_STEPS} steps in one epoch call); "
+        f"{wall_ms:.4f} ms/step host clock; losses {losses[0].item():.6f} -> {losses[-1].item():.6f}; "
+        f"launches per step {{{', '.join(f'{k}: {v / TRAIN_STEPS:g}' for k, v in counts.items())}}}"
+    )
+
+    images, coords = ds_images[:b], ds_coords[:b]
+    gen = torch.Generator(device="cuda").manual_seed(cfg.random_seed)
+    step_breakdown(
+        "train unfused", "sample + unfused op chain, warp kernel #3", cfg, state, aug, opt, images, coords, gen,
+        step_ms, lambda: epoch_fn(state, ds_images, ds_coords, idx[:3], cfg.random_seed, 0),
+    )
+    del ds_images, ds_coords
+
+    # the eval step over a val split whose row count is not a multiple of the batch
+    val_images, val_coords = _device_split(cfg, VAL_ROWS, seed=cfg.random_seed + 1)
+    val_aug = KeypointAugmentation(cfg.augmentation_config, train=False)
+    dd_eval = train.make_device_data_eval_step(cfg, val_aug)
+    total, count, n_batches = 0.0, 0.0, 0
+    for idx_v, mask in train.eval_index_batches(VAL_ROWS, b):
+        s_, n_ = dd_eval(state, val_images, val_coords, idx_v, mask)
+        total, count, n_batches = total + s_.item(), count + n_.item(), n_batches + 1
+    eval_step = train.make_eval_step(cfg, val_aug)
+    parts = [eval_step(state, val_images[a:z], val_coords[a:z], torch.ones(z - a, device="cuda"))
+             for a, z in ((0, b), (b, VAL_ROWS))]
+    whole = sum(p[0].item() for p in parts)
+    rel = abs(total - whole) / abs(whole)
+    # rel 1e-3: bf16 convolutions, and cuDNN may take another algorithm for a batch of 44
+    if count != VAL_ROWS or not np.isfinite(total) or not rel < 1e-3:
+        raise AssertionError(f"device-data eval: count {count} of {VAL_ROWS} rows, loss sum {total} vs {whole}")
+    log(f"eval over a {VAL_ROWS}-row val split in {n_batches} batches of {b}: count {count:g}, mean loss "
+        f"{total / count:.6f}; the unpadded batches' sum differs by rel {rel:.3e}")
+    del val_images, val_coords, state
+    torch.cuda.empty_cache()
+    unfused_cuda_vs_cpu(cfg)
+    return counts, step_ms
+
+
+def unfused_cuda_vs_cpu(cfg):
+    """The unfused augmentation on the card against the CPU (which the
+    tier-1 tests hold against the JAX package) on a small f32 batch, the
+    same draws: transplant, the two-pass warp kernel, every op. A value
+    that sits on a discontinuity (an erase edge, a tap floor, a hue tie, a
+    depth plane) would differ by a jump: the worst elements are printed."""
+    import numpy as np
+    import torch
+
+    from perseus_tpu_torch.augment.pipeline import KeypointAugmentation
+    from perseus_tpu_torch.data.synthetic import make_batch
+    from perseus_tpu_torch.train import train
+
+    batch = make_batch(4, 64, 64, cfg.n_keypoints, seed=7)
+    images = torch.from_numpy(train._prepare_aug_batch(batch, cfg.in_channels, True))
+    coords = torch.from_numpy(np.asarray(batch["pixel_coordinates"], np.float32))
+    aug = KeypointAugmentation(cfg.augmentation_config, fused=False)
+    draws = aug.sample(torch.Generator().manual_seed(3), 4, 64, 64, 5)
+    on_cpu, crd_cpu = aug.apply(images, coords, draws)
+    on_dev, crd_dev = aug.apply(images.cuda(), coords.cuda(), draws)
+    diff = (on_dev.cpu() - on_cpu).abs()
+    crd_err = (crd_dev.cpu() - crd_cpu).abs().max().item()
+    if not (diff.max().item() <= 1e-5 and crd_err <= 1e-5):
+        worst = torch.topk(diff.flatten(), 5)
+        where = [tuple(int(i) for i in torch.unravel_index(k, diff.shape)) for k in worst.indices]
+        log(f"unfused CUDA vs CPU: worst elements (b, c, y, x) {where}: card "
+            f"{[on_dev.cpu()[w].item() for w in where]}, CPU {[on_cpu[w].item() for w in where]}")
+        raise AssertionError(f"unfused augmentation, CUDA vs CPU: max abs {diff.max().item()}, coords {crd_err}")
+    log(f"small f32 unfused augmentation (4, 5, 64, 64), CUDA vs CPU, same draws: max abs diff "
+        f"{diff.max().item():.3e}, coords {crd_err:.3e}")
 
 
 def _serving_config(smoother=None):
@@ -791,20 +1027,26 @@ def main() -> int:
         print(f"[smoke] FAIL: cannot import the port ({exc}); run from the repo root", file=sys.stderr)
         return 1
     phase = "device"
+    t_start = time.perf_counter()
+
+    def run(name, fn, *args):
+        nonlocal phase
+        phase = name
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s (run so far {time.perf_counter() - t_start:.1f} s)")
+        return out
+
     try:
-        phase_device()
-        phase = "build"
-        phase_build()
-        phase = "kernel: maxpool forward"
-        fwd, fwd_err = phase_pool_kernel((256, 64, 128, 128), torch.bfloat16)
-        phase = "kernel: maxpool backward"
-        bwd, bwd_err = phase_pool_backward_kernel()
-        phase = "kernel: augmentation"
-        augk = phase_augment_kernels()
-        phase = "train"
-        train_counts, branch_counts, _ = phase_train()
-        phase = "serving"
-        serving_launches = phase_serving()
+        run("device", phase_device)
+        run("build", phase_build)
+        fwd, fwd_err = run("kernel: maxpool forward", phase_pool_kernel, (256, 64, 128, 128), torch.bfloat16)
+        bwd, bwd_err = run("kernel: maxpool backward", phase_pool_backward_kernel)
+        augk = run("kernel: augmentation", phase_augment_kernels)
+        warpk = run("kernel: two-pass warp", phase_warp_kernel)
+        train_counts, branch_counts, _ = run("train", phase_train)
+        unfused_counts, _ = run("train unfused (device-resident split)", phase_train_unfused)
+        serving_launches = run("serving", phase_serving)
     except Exception as exc:  # report which phase failed, with its traceback
         import traceback
 
@@ -828,6 +1070,10 @@ def main() -> int:
                branch_counts["fused_warp_apply"], aug("warp", 4)[4], aug("warp", 4)[:4], None),
         _entry("fused_ultra_apply", aug_src, "perseus_tpu/augment/fused.py:413",
                train_counts["fused_ultra_apply"], aug("ultra", 5)[4], aug("ultra", 5)[:4], None),
+        # no single PyTorch call computes the two-pass warp (F.grid_sample,
+        # logged beside it, is a direct 2-D bilinear warp)
+        _entry("warp_affine_two_pass", aug_src, "perseus_tpu/augment/warp_pallas.py:70",
+               unfused_counts["warp_affine_two_pass"], warpk[4], warpk[:4], None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

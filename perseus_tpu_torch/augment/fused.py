@@ -112,9 +112,7 @@ def sample_fused_params(gen: torch.Generator, cfg, b: int, h: int, w: int, c: in
     if cfg.blur:
         sigma = uni((b,), 3.0, 8.0)
         blur_applied = ops._bernoulli(gen, 0.5, (b,)).to(f32)
-        offsets = torch.arange(-2, 3, dtype=f32, device=dev)
-        taps = torch.exp(-0.5 * (offsets[None, :] / sigma[:, None]) ** 2)
-        taps = taps / torch.sum(taps, dim=-1, keepdim=True)
+        taps = ops._blur_taps(sigma)
     else:
         blur_applied, taps = zeros(b), zeros(b, 5)
 
@@ -173,34 +171,12 @@ def sample_fused_params(gen: torch.Generator, cfg, b: int, h: int, w: int, c: in
 # --------------------------------------------------------------------------
 
 
-def _reflect_index(n: int, device) -> torch.Tensor:
-    """Source index of each of the n + 4 rows of a 2-reflect-padded axis:
-    -2 -> 2, -1 -> 1, n -> n - 2, n + 1 -> n - 3 (``fused._reflect_pad``)."""
-    idx = torch.arange(-2, n + 2, device=device)
-    idx = torch.where(idx < 0, -idx, idx)
-    return torch.where(idx >= n, 2 * (n - 1) - idx, idx)
-
-
-def _blur_plane(x: torch.Tensor, taps: list[torch.Tensor]) -> torch.Tensor:
-    """5-tap separable blur with reflect padding of (B, H, W) planes,
-    vertical pass first, taps summed in order."""
-    h, w = x.shape[-2:]
-    p = x[:, _reflect_index(h, x.device)]
-    acc = 0
-    for i in range(5):
-        acc = acc + taps[i] * p[:, i : i + h]
-    p = acc[:, :, _reflect_index(w, x.device)]
-    out = 0
-    for i in range(5):
-        out = out + taps[i] * p[:, :, i : i + w]
-    return out
-
-
 def _hue_planes(r, g, b, shift):
     """Hue rotation on channel planes. The max channel is picked by ordering
     comparisons (r >= g, ...), as in the JAX kernel, not by equality with
-    the computed max; ``%`` is torch.remainder, the floor modulo of JAX's
-    ``%`` (a truncating fmod would be wrong for a negative shift)."""
+    the computed max (the unfused ``ops._adjust_hue`` differs at ties);
+    ``%`` is torch.remainder, the floor modulo of JAX's ``%`` (a truncating
+    fmod would be wrong for a negative shift)."""
     maxc = torch.maximum(torch.maximum(r, g), b)
     minc = torch.minimum(torch.minimum(r, g), b)
     v = maxc
@@ -215,21 +191,7 @@ def _hue_planes(r, g, b, shift):
     hh = torch.where(r_max, hr, torch.where(g_max, hg, hb)) / 6.0
     hh = torch.where(delta == 0, 0.0, hh)
     hh = torch.remainder(hh + shift, 1.0)
-    h6 = hh * 6.0
-    i = torch.floor(h6)
-    f = h6 - i
-    pp = v * (1 - s)
-    qq = v * (1 - s * f)
-    tt = v * (1 - s * (1 - f))
-    i = torch.remainder(i.to(torch.int32), 6)
-
-    def sel(vals):
-        out = vals[5]
-        for k in range(4, -1, -1):
-            out = torch.where(i == k, vals[k], out)
-        return out
-
-    return sel([v, qq, pp, pp, tt, v]), sel([tt, v, v, qq, pp, pp]), sel([pp, pp, tt, v, v, qq])
+    return ops._hsv_to_rgb(hh, s, v)
 
 
 def _chain_planes(planes: list, plasma, fields: list, sv: torch.Tensor) -> list:
@@ -272,9 +234,9 @@ def _chain_planes(planes: list, plasma, fields: list, sv: torch.Tensor) -> list:
     b = torch.where(f_h == 0.0, b, clip(hb))
     taps = [k(17 + i) for i in range(5)]
     blur_on = k(16) > 0.5
-    r = torch.where(blur_on, _blur_plane(r, taps), r)
-    g = torch.where(blur_on, _blur_plane(g, taps), g)
-    b = torch.where(blur_on, _blur_plane(b, taps), b)
+    r = torch.where(blur_on, ops._blur_plane(r, taps), r)
+    g = torch.where(blur_on, ops._blur_plane(g, taps), g)
+    b = torch.where(blur_on, ops._blur_plane(b, taps), b)
     delta_sh = k(22) * (plasma < k(23)).to(torch.float32)
     r = clip(r + delta_sh)
     g = clip(g + delta_sh)

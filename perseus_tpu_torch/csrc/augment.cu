@@ -1,6 +1,6 @@
-// The fused train-time augmentation of the keypoint detector, over
+// The train-time augmentation kernels of the keypoint detector, over
 // NCHW-contiguous batches in f32 or bf16 storage with f32 math. One source,
-// three entry modes:
+// three entry modes of the fused chain:
 //
 //   mode 0  chain  replaces perseus_tpu/augment/fused.py::_kernel
 //                  (fused_apply: the elementwise chain of _chain_planes)
@@ -10,6 +10,18 @@
 //                  the donor transplant of _transplant_planes with its
 //                  seg-ratio gate, the per-image swap transpose, the warp,
 //                  the chain)
+//
+// and the standalone warp of the unfused chain:
+//
+//   perseus_warp_affine_f32  replaces perseus_tpu/augment/warp_pallas.py::
+//                  _warp_kernel (augment/warp.py::warp_affine_two_pass): the
+//                  two-pass warp alone, f32 in and out, any square size, the
+//                  swap transpose read in place. One thread per output pixel
+//                  computes its taps once (warp_taps, shared with stage1) and
+//                  walks the channels. Bound: bytes (the image read once, the
+//                  output written once, 40 B/px at C = 5); the 4 taps per
+//                  channel re-read neighbouring source pixels through L1/L2,
+//                  and a swapped image is read down its columns.
 //
 // Design. The TPU kernel holds a whole image in VMEM. A 256x256x5 f32 image
 // is 1.25 MiB, far above one SM's 227 KB of shared memory, and the chain
@@ -151,13 +163,55 @@ __global__ void seg_count(Args<T> a) {
   if ((threadIdx.x & 31) == 0 && cnt) atomicAdd(&a.counts[bi], cnt);  // integer: exact, any order
 }
 
+// Offset of row i, column j of the warp's input in the stored (square)
+// image: the stored image is read transposed, at (j, i), when swap is set.
+__device__ __forceinline__ int64_t src_offset(int i, int j, bool swap, int w) {
+  return swap ? (int64_t)j * w + i : (int64_t)i * w + j;
+}
+
+// The two-pass warp's taps of output pixel (y, x) of an h x w image:
+// columns j[t] = clamp(j0 + t), j0 = floor(gam[y, x]), with weights hwt[t];
+// for each, rows i[t][u] = clamp(i0 + u), i0 = floor(rhoT[j[t], y]), with
+// weights vwt[t][u]. Out-of-range taps get weight 0 (zero padding). Every
+// product and sum rounds on its own (-fmad=false), as in the plain version,
+// so a tap's index and its weight come from the same bits.
+struct Taps {
+  int j[2];
+  float hwt[2];
+  int i[2][2];
+  float vwt[2][2];
+};
+__device__ __forceinline__ Taps warp_taps(float i00, float i01, float t0, float p, float q, float r,
+                                          float yf, float xf, int h, int w) {
+  Taps tp;
+  const float gam = i01 * yf + i00 * xf + t0;  // gam[y, x] = (i01 y + i00 x) + t0
+  const float g0 = floorf(gam);
+  const float fh = gam - g0;
+  const int j0 = (int)g0;
+  tp.j[0] = min(max(j0, 0), w - 1);
+  tp.j[1] = min(max(j0 + 1, 0), w - 1);
+  tp.hwt[0] = (j0 >= 0 && j0 < w) ? 1.0f - fh : 0.0f;
+  tp.hwt[1] = (j0 + 1 >= 0 && j0 + 1 < w) ? fh : 0.0f;
+  for (int t = 0; t < 2; ++t) {
+    const float rho = q * yf + p * (float)tp.j[t] + r;  // rhoT[j, y]
+    const float r0 = floorf(rho);
+    const float fv = rho - r0;
+    const int i0 = (int)r0;
+    tp.i[t][0] = min(max(i0, 0), h - 1);
+    tp.i[t][1] = min(max(i0 + 1, 0), h - 1);
+    tp.vwt[t][0] = (i0 >= 0 && i0 < h) ? 1.0f - fv : 0.0f;
+    tp.vwt[t][1] = (i0 + 1 >= 0 && i0 + 1 < h) ? fv : 0.0f;
+  }
+  return tp;
+}
+
 // All channels of the source pixel at row i, column j of the warp's input:
 // the (transplanted if accepted) image, transposed when swap is set.
 template <typename T, int MODE>
 __device__ __forceinline__ void fetch(const Args<T>& a, const T* img, const T* don, int i, int j,
                                       bool swap, bool accept, float* v) {
   const int64_t hw = (int64_t)a.h * a.w;
-  const int64_t px = swap ? (int64_t)j * a.w + i : (int64_t)i * a.w + j;
+  const int64_t px = src_offset(i, j, swap, a.w);
   for (int k = 0; k < a.c; ++k) v[k] = ld(img[k * hw + px]);
   if (MODE == 2 && accept) {
     float dv[5];
@@ -205,30 +259,15 @@ __global__ void stage1(Args<T> a) {
     if (MODE == 0) {
       for (int k = 0; k < c; ++k) v[k] = ld(img[k * hw + px]);
     } else {
-      // gam[y, x] = (i01 y + i00 x) + t0, one rounding per op (-fmad=false):
-      // the same bits give the tap index and its weight
-      const float gam = i01 * yf + i00 * xf + t0;
-      const float g0 = floorf(gam);
-      const float fh = gam - g0;
-      const int j0 = (int)g0;
-      const int jt[2] = {min(max(j0, 0), w - 1), min(max(j0 + 1, 0), w - 1)};
-      const float hwt[2] = {(j0 >= 0 && j0 < w) ? 1.0f - fh : 0.0f,
-                            (j0 + 1 >= 0 && j0 + 1 < w) ? fh : 0.0f};
+      const Taps tp = warp_taps(i00, i01, t0, p, q, r, yf, xf, h, w);
       float inter[2][kMaxC];
       for (int t = 0; t < 2; ++t) {
-        const int j = jt[t];
-        const float rho = q * yf + p * (float)j + r;  // rhoT[j, y]
-        const float r0 = floorf(rho);
-        const float fv = rho - r0;
-        const int i0 = (int)r0;
-        const float vw0 = (i0 >= 0 && i0 < h) ? 1.0f - fv : 0.0f;
-        const float vw1 = (i0 + 1 >= 0 && i0 + 1 < h) ? fv : 0.0f;
         float v0[kMaxC], v1[kMaxC];
-        fetch<T, MODE>(a, img, don, min(max(i0, 0), h - 1), j, swap, accept, v0);
-        fetch<T, MODE>(a, img, don, min(max(i0 + 1, 0), h - 1), j, swap, accept, v1);
-        for (int k = 0; k < c; ++k) inter[t][k] = v0[k] * vw0 + v1[k] * vw1;
+        fetch<T, MODE>(a, img, don, tp.i[t][0], tp.j[t], swap, accept, v0);
+        fetch<T, MODE>(a, img, don, tp.i[t][1], tp.j[t], swap, accept, v1);
+        for (int k = 0; k < c; ++k) inter[t][k] = v0[k] * tp.vwt[t][0] + v1[k] * tp.vwt[t][1];
       }
-      for (int k = 0; k < c; ++k) v[k] = inter[0][k] * hwt[0] + inter[1][k] * hwt[1];
+      for (int k = 0; k < c; ++k) v[k] = inter[0][k] * tp.hwt[0] + inter[1][k] * tp.hwt[1];
     }
     // two erase rects, on every channel
     bool erase = false;
@@ -413,7 +452,42 @@ int run(int mode, const void* img, void* out, const void* sv, const void* fields
   return (int)cudaGetLastError();
 }
 
+// The standalone two-pass warp: one thread per output pixel of image
+// blockIdx.y; wp is (B, 7), (i00, i01, t0, p, q, r, swap).
+__global__ void warp_two_pass(const float* __restrict__ img, float* __restrict__ out,
+                              const float* __restrict__ wp, int c, int h, int w) {
+  const int bi = blockIdx.y;
+  const int64_t hw = (int64_t)h * w;
+  const int64_t px = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (px >= hw) return;
+  const float* prm = wp + (int64_t)bi * 7;
+  const bool swap = prm[6] > 0.5f;
+  const int y = (int)(px / w), x = (int)(px % w);
+  const Taps tp = warp_taps(prm[0], prm[1], prm[2], prm[3], prm[4], prm[5], (float)y, (float)x, h, w);
+  int64_t off[2][2];
+  for (int t = 0; t < 2; ++t)
+    for (int u = 0; u < 2; ++u) off[t][u] = src_offset(tp.i[t][u], tp.j[t], swap, w);
+  const float* src = img + (int64_t)bi * c * hw;
+  float* dst = out + (int64_t)bi * c * hw;
+  for (int k = 0; k < c; ++k) {
+    const float* plane = src + k * hw;
+    const float in0 = plane[off[0][0]] * tp.vwt[0][0] + plane[off[0][1]] * tp.vwt[0][1];
+    const float in1 = plane[off[1][0]] * tp.vwt[1][0] + plane[off[1][1]] * tp.vwt[1][1];
+    dst[k * hw + px] = in0 * tp.hwt[0] + in1 * tp.hwt[1];
+  }
+}
+
 }  // namespace
+
+extern "C" int perseus_warp_affine_f32(const void* img, void* out, const void* wp, int b, int c,
+                                       int h, int w, void* stream) {
+  if (b == 0 || c == 0 || h == 0 || w == 0) return 0;
+  if (h != w || b > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(((int64_t)h * w + kThreads - 1) / kThreads), b);
+  warp_two_pass<<<grid, kThreads, 0, (cudaStream_t)stream>>>((const float*)img, (float*)out,
+                                                             (const float*)wp, c, h, w);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int perseus_fused_augment_f32(int mode, const void* img, void* out, const void* sv,
                                          const void* fields, const void* plasma, const void* wp,

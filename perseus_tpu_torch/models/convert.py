@@ -119,11 +119,13 @@ def convert_opt_state(optax_state):
     )
 
 
-def from_jax_train_state(params, batch_stats, opt_state, device="cpu"):
+def from_jax_train_state(params, batch_stats, opt_state, device: str | torch.device | None = "cuda"):
     """A JAX ``TrainState``'s three parts -> the port's ``TrainState`` on
-    ``device``."""
+    ``device`` (the card unless the caller passes ``device="cpu"``)."""
+    from perseus_tpu_torch import resolve_device
     from perseus_tpu_torch.train.train import TrainState
 
+    device = resolve_device(device)
     sd = from_jax_params(params, batch_stats)
     opt = convert_opt_state(opt_state)
     move = lambda d: {k: v.to(device) for k, v in d.items()}  # noqa: E731

@@ -10,10 +10,16 @@ global-norm clip -> AdamW, as optax's ``clip_by_global_norm`` + ``adamw``.
 
 Entry points: :func:`init_state`, :func:`make_optimizer`,
 :func:`make_train_step` (:func:`make_loss_and_grads` and the optimizer),
-:func:`make_eval_step`. The state is functional,
-as in JAX: a step returns a new :class:`TrainState` and leaves its input
-unchanged. The epoch loop over the HDF5 dataset, checkpoints, EMA and data
-parallelism are not ported yet.
+:func:`make_eval_step`; and the trainer's device-resident-data
+configuration (``cfg.data_on_device``), one card: a split held on the
+device, each step gathering its batch by an index tensor
+(:func:`make_device_data_train_step`), a whole epoch in one call
+(:func:`make_device_data_epoch_fn`) and the eval step over a val split
+(:func:`make_device_data_eval_step`, batches from
+:func:`eval_index_batches`). The state is functional, as in JAX: a step
+returns a new :class:`TrainState` and leaves its input unchanged. The
+``train()`` loop over the HDF5 dataset (and filling the split from it),
+checkpoints, EMA and data parallelism are not ported yet.
 """
 
 from __future__ import annotations
@@ -41,6 +47,11 @@ __all__ = [
     "make_loss_and_grads",
     "make_train_step",
     "make_eval_step",
+    "step_generator",
+    "make_device_data_train_step",
+    "make_device_data_epoch_fn",
+    "make_device_data_eval_step",
+    "eval_index_batches",
 ]
 
 
@@ -322,3 +333,79 @@ def make_eval_step(cfg: TrainConfig, val_augment: KeypointAugmentation):
         return torch.sum(per_elem * weights), torch.sum(weights)
 
     return step
+
+
+def step_generator(run_seed: int, step: int, device) -> torch.Generator:
+    """The augmentation's generator of global step ``step`` on ``device``,
+    seeded from (run seed, step) alone: the counterpart of JAX's
+    ``fold_in(run_key, step)``, so a step makes the same draws whether it
+    runs inside an epoch call or on its own."""
+    seed = int(np.random.SeedSequence([run_seed, step]).generate_state(1, np.uint64)[0]) >> 1
+    return torch.Generator(device=torch.device(device)).manual_seed(seed)
+
+
+def _gather(ds: torch.Tensor, idx) -> torch.Tensor:
+    return ds.index_select(0, torch.as_tensor(idx, device=ds.device).long())
+
+
+def make_device_data_train_step(cfg: TrainConfig, optimizer: ClipAdamW, train_augment: KeypointAugmentation):
+    """Train step over a device-resident split: ``step(state, ds_images,
+    ds_coords, idx, gen, ds_weights=None) -> (new_state, loss)`` gathers rows
+    ``idx`` (B,) of ``ds_images`` (N, C, H, W), ``ds_coords`` (N, K, 2) and,
+    with ``cfg.use_example_weights``, ``ds_weights`` (N,) on their device,
+    then takes :func:`make_train_step`'s step (one card: JAX's ``mesh=None``)."""
+    base_step = make_train_step(cfg, optimizer, train_augment)
+
+    def step(state: TrainState, ds_images, ds_coords, idx, gen, ds_weights=None):
+        weights = None if ds_weights is None else _gather(ds_weights, idx)
+        return base_step(state, _gather(ds_images, idx), _gather(ds_coords, idx), gen, weights=weights)
+
+    return step
+
+
+def make_device_data_epoch_fn(cfg: TrainConfig, optimizer: ClipAdamW, train_augment: KeypointAugmentation):
+    """A whole epoch over a device-resident split in one call:
+    ``epoch_fn(state, ds_images, ds_coords, idx_epoch, run_seed, base_step,
+    ds_weights=None) -> (state, losses)``. Step ``s`` takes rows
+    ``idx_epoch[s]`` of the (steps, B) index tensor with the generator
+    :func:`step_generator` (run_seed, base_step + s) on the split's device,
+    the same draws and data order as calling the step alone. ``losses`` is
+    one (steps,) tensor on the device (one read-back per epoch)."""
+    dd_step = make_device_data_train_step(cfg, optimizer, train_augment)
+
+    def epoch_fn(state: TrainState, ds_images, ds_coords, idx_epoch, run_seed: int, base_step: int, ds_weights=None):
+        losses = []
+        for s in range(idx_epoch.shape[0]):
+            gen = step_generator(run_seed, base_step + s, ds_images.device)
+            state, loss = dd_step(state, ds_images, ds_coords, idx_epoch[s], gen, ds_weights)
+            losses.append(loss)
+        return state, torch.stack(losses)
+
+    return epoch_fn
+
+
+def make_device_data_eval_step(cfg: TrainConfig, val_augment: KeypointAugmentation):
+    """Eval step over a device-resident val split: ``step(state, ds_images,
+    ds_coords, idx, mask) -> (loss_sum, count)``, :func:`make_eval_step`
+    on rows ``idx`` with ``mask`` (B,) as the weights: 0 for the filler
+    rows of a last, partial batch, so every real row counts once."""
+    base_step = make_eval_step(cfg, val_augment)
+
+    def step(state: TrainState, ds_images, ds_coords, idx, mask):
+        mask = torch.as_tensor(mask, dtype=torch.float32, device=ds_images.device)
+        return base_step(state, _gather(ds_images, idx), _gather(ds_coords, idx), mask)
+
+    return step
+
+
+def eval_index_batches(n_rows: int, batch_size: int):
+    """(idx, mask) pairs, numpy int64 and f32 of length ``batch_size``,
+    covering rows 0..n_rows-1 once in order; the last batch is filled up
+    with row 0 at mask 0 (the JAX trainer's val loop on one device)."""
+    for start in range(0, n_rows, batch_size):
+        length = min(batch_size, n_rows - start)
+        idx = np.zeros(batch_size, np.int64)
+        mask = np.zeros(batch_size, np.float32)
+        idx[:length] = np.arange(start, start + length)
+        mask[:length] = 1.0
+        yield idx, mask

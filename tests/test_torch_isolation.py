@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from perseus_tpu_torch import resolve_device
+from perseus_tpu_torch.models import convert
 from perseus_tpu_torch.models.resnet import KeypointCNN
 from perseus_tpu_torch.runtime.streaming import StreamingConfig, StreamingPipeline
 
@@ -55,6 +56,7 @@ def test_entry_points_raise_without_cuda():
         lambda: resolve_device("cuda"),
         lambda: KeypointCNN(num_channels=4),
         lambda: StreamingPipeline(StreamingConfig(num_channels=4), {}),
+        lambda: convert.from_jax_train_state({}, {}, ()),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

@@ -175,7 +175,7 @@ def _jax_steps(jcfg):
 
 def _to_port(jstate):
     host = jax.tree.map(np.asarray, jstate)
-    return convert.from_jax_train_state(host.params, host.batch_stats, host.opt_state)
+    return convert.from_jax_train_state(host.params, host.batch_stats, host.opt_state, device="cpu")
 
 
 def _assert_state_close(tstate, jstate, atol=1e-4):
