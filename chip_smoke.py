@@ -9,16 +9,21 @@ non-zero exit:
 
   1. device: require CUDA; print the card's name and power limit;
   2. build every CUDA source in csrc/ with nvcc, one process per source, all
-     started together;
+     started together; log each kernel's registers, stack frame, spills and
+     shared memory (ptxas -v) and the integer divisions in its SASS;
   3. each kernel against its plain PyTorch version, on the card, at the main
      paths' shapes plus odd shapes: the stem maxpool forward (exact, with
-     NaN/-inf inputs) and gradient (exact, with forced ties), the three fused
+     NaN/-inf inputs) and gradient (exact, with forced ties, odd sizes, a
+     width that is not a multiple of 8, unaligned views), the three fused
      augmentation kernels at (256, 5, 256, 256) in f32 (atol 1e-5) and bf16
      (one ulp: rtol 2^-7, atol 2^-9) and at (256, 4, 256, 256) f32 (the
      4-channel warp branch's input), with a swapped image and a rejected
-     transplant for the ultra kernel; CUDA-event times of the kernel, the
-     plain version and, where one exists, the PyTorch library call that
-     computes the same function; the two-pass affine warp (#3) at
+     transplant for the ultra kernel, and over a sweep of affines (the
+     config's extremes and a zoom-out past it) at sizes 37, 129 and 256;
+     CUDA-event times of the kernel, the plain version and, where one
+     exists, the PyTorch library call that computes the same function, and
+     each timed kernel's device time split over its launches (torch.profiler,
+     kernels only); the two-pass affine warp (#3) at
      (256, 5, 256, 256) f32 with affines to +-90 deg and shear 10 deg (atol
      1e-5), exact at the identity, and at (3, 5, 37, 37) and (2, 4, 129,
      129), timed beside F.grid_sample (a direct 2-D bilinear warp, another
@@ -106,6 +111,32 @@ def same(a, b) -> bool:
     return bool(torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
 
 
+def log_split(label: str, fn, calls: int = 5) -> None:
+    """Logs the device time of each kernel that ``calls`` calls of ``fn``
+    launch, from torch.profiler (kernels only), longest first. The profiler
+    is a diagnostic here, so its failure is reported, not fatal."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as exc:  # noqa: BLE001
+        log(f"{label} split: not measured (profiler: {exc!r})")
+        return
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    total = sum(e.self_device_time_total for e in kernels) / calls
+    log(f"{label} split (torch.profiler, kernels only, per call): {total:.3f} us in "
+        f"{sum(e.count for e in kernels) / calls:g} launches")
+    for e in kernels:
+        log(f"{label} split:   {e.key[:100]}: {e.self_device_time_total / calls:.3f} us ({e.count / calls:g} launches)")
+
+
 def phase_device():
     import torch
 
@@ -128,6 +159,9 @@ def phase_build():
     for name in SOURCES:
         _build.load_library(name)
     log(f"built {paths} in {time.perf_counter() - t0:.3f} s")
+    for name in SOURCES:  # ptxas -v and the SASS's integer divisions, per kernel
+        for line in _build.build_report(name):
+            log(f"build {name}.cu: {line}")
 
 
 def pool_bound_ms(shape, dtype) -> tuple[float, str]:
@@ -202,9 +236,22 @@ def bytes_bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+def unaligned(t):
+    """A contiguous copy of ``t`` whose data pointer is one element past a
+    16-byte boundary (what a view into a larger buffer can be)."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def phase_pool_backward_kernel():
     """The maxpool gradient kernel against its plain version, exactly, on
-    ReLU'd inputs (exact-zero ties) and integer inputs (positive ties)."""
+    ReLU'd inputs (exact-zero ties) and integer inputs (positive ties), at
+    the stem's shape, odd sizes, a width that is not a multiple of 8 and
+    unaligned views."""
     import torch
     import torch.nn.functional as F
 
@@ -217,6 +264,10 @@ def phase_pool_backward_kernel():
         ("stem B=2 bf16 integer ties", (2, 64, 128, 128), torch.bfloat16, "ties"),
         ("odd 2x8x31x17 f32 integer ties", (2, 8, 31, 17), torch.float32, "ties"),
         ("odd 2x8x31x17 bf16 integer ties", (2, 8, 31, 17), torch.bfloat16, "ties"),
+        ("W % 8 != 0 2x4x18x22 f32 integer ties", (2, 4, 18, 22), torch.float32, "ties"),
+        ("W % 8 != 0 2x4x18x22 bf16 integer ties", (2, 4, 18, 22), torch.bfloat16, "ties"),
+        ("unaligned views 2x8x32x64 f32 integer ties", (2, 8, 32, 64), torch.float32, "unaligned"),
+        ("unaligned views 2x8x32x64 bf16 integer ties", (2, 8, 32, 64), torch.bfloat16, "unaligned"),
         ("tiny 1x3x1x1 f32", (1, 3, 1, 1), torch.float32, "ties"),
     ]
     timings = {}
@@ -226,6 +277,8 @@ def phase_pool_backward_kernel():
         x = x.to("cuda", dtype)
         y = pool.max_pool_3x3_s2(x)
         g = torch.randn(y.shape, generator=gen).to("cuda", dtype)
+        if kind == "unaligned":
+            x, y, g = unaligned(x), unaligned(y), unaligned(g)
         out = pool.max_pool_3x3_s2_backward(x, y, g)
         torch.cuda.synchronize()
         ref = pool.max_pool_3x3_s2_backward_reference(x, y, g)
@@ -241,6 +294,7 @@ def phase_pool_backward_kernel():
         t_kernel = time_ms(lambda: pool.max_pool_3x3_s2_backward(x, y, g), iters=20, warmup=3)
         t_plain = time_ms(lambda: pool.max_pool_3x3_s2_backward_reference(x, y, g), iters=5, warmup=1)
         t_lib = time_ms(lib, iters=20, warmup=3)
+        log_split(f"maxpool backward {name}", lambda: pool.max_pool_3x3_s2_backward(x, y, g))
         size = torch.finfo(dtype).bits // 8
         nbytes = (2 * x.numel() + 2 * y.numel()) * size  # x, y, g read; dx written
         bound, by = bytes_bound_ms(nbytes, 7 * x.numel())  # <= 4 compares + 3 adds per input
@@ -294,24 +348,70 @@ def aug_bytes(b: int, c: int, s: int, dtype) -> float:
 AUG_OPS_PER_PX = {"chain": lambda c: 150, "warp": lambda c: 170 + 12 * c, "ultra": lambda c: 170 + 22 * c}
 
 
+# (angle deg, forward scale, shear_x deg, shear_y deg, tx, ty as fractions of
+# the size): the augmentation config's extremes (degrees 90, scale 0.9-1.5,
+# shear 0.1, translate 0.1), images swapped (|angle| > 45) and not, the
+# identity, and a zoom-out past the config (scale 0.3) whose tiles' source
+# boxes exceed the ultra kernel's shared-memory budget
+AFFINE_SWEEP = (
+    (90.0, 0.9, 0.1, -0.1, 0.1, -0.1),
+    (-90.0, 1.5, -0.1, 0.1, -0.1, 0.1),
+    (45.0, 0.9, 0.1, 0.1, 0.1, 0.1),
+    (-45.0, 1.5, -0.1, -0.1, -0.1, -0.1),
+    (60.0, 1.2, 0.1, -0.1, -0.1, 0.1),
+    (-30.0, 0.9, -0.1, 0.1, 0.1, 0.0),
+    (0.0, 1.0, 0.0, 0.0, 0.0, 0.0),
+    (30.0, 0.3, 0.0, 0.0, 0.0, 0.0),
+)
+
+
+def _sweep_inputs(gen, s, dtype):
+    """(8, 5, S, S) inputs on the card, image k warped by AFFINE_SWEEP[k];
+    image 0 and its donor (image 1) carry no cube, so image 0's transplant
+    is rejected and the others' are accepted."""
+    import torch
+
+    from perseus_tpu_torch.augment import fused, ops
+    from perseus_tpu_torch.augment.pipeline import AugmentationConfig
+
+    b = len(AFFINE_SWEEP)
+    x = torch.rand((b, 5, s, s), device="cuda", generator=gen)
+    x[:, 3] = 3.0 + 11.0 * x[:, 3]
+    x[:, 4] = (x[:, 4] < 0.4).float()
+    x[:2, 4] = 0.0
+    col = torch.tensor(AFFINE_SWEEP, device="cuda").T
+    aff = {"angle": col[0], "scale": col[1], "shear_x": col[2], "shear_y": col[3], "tx": col[4] * s,
+           "ty": col[5] * s, "applied": torch.ones(b, dtype=torch.bool, device="cuda")}
+    swap, parts = ops._two_pass_params(ops._invert_affine(ops.affine_matrices(aff, s, s)))
+    donor = (torch.arange(b, device="cuda") + 1) % b
+    accepted = (ops.transplant_with_depth(x, donor) != x).flatten(1).any(1)
+    if not (swap.any() and not swap.all() and accepted.any() and not accepted.all()):
+        raise AssertionError(f"affine sweep at {s}: swap {swap.tolist()}, transplant accepted {accepted.tolist()}")
+    params = fused.sample_fused_params(gen, AugmentationConfig(), b, s, s, 5)
+    return x.to(dtype), params, donor, swap, torch.stack(parts, dim=-1)
+
+
 def phase_augment_kernels():
     """Each fused augmentation kernel against its plain version, at the
     train shapes (256, 5, 256, 256) in f32 and bf16 and (256, 4, 256, 256)
-    in f32 (the warp + chain branch's 4-channel input), and at odd shapes."""
+    in f32 (the warp + chain branch's 4-channel input), at odd shapes, and
+    over AFFINE_SWEEP at sizes 37, 129 and 256; each kernel's device time
+    split over its launches at the train shapes."""
     import torch
 
     from perseus_tpu_torch.augment import fused
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     results = {}
-    for b, c, s, dtype, timed in [
-        (256, 5, 256, torch.float32, True),
-        (256, 5, 256, torch.bfloat16, True),
-        (256, 4, 256, torch.float32, True),
-        (3, 4, 37, torch.float32, False),
-        (3, 5, 37, torch.bfloat16, False),
-    ]:
-        x, params, donor, swap, wp = _aug_inputs(gen, b, c, s, dtype)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(256, 5, 256, f32, "timed"), (256, 5, 256, bf16, "timed"), (256, 4, 256, f32, "timed"),
+             (3, 4, 37, f32, "odd"), (3, 5, 37, bf16, "odd")]
+    cases += [(len(AFFINE_SWEEP), 5, s, dtype, "affine sweep") for s in (37, 129, 256) for dtype in (f32, bf16)]
+    for b, c, s, dtype, case in cases:
+        if case == "affine sweep":
+            x, params, donor, swap, wp = _sweep_inputs(gen, s, dtype)
+        else:
+            x, params, donor, swap, wp = _aug_inputs(gen, b, c, s, dtype)
         calls = {
             "chain": (fused.fused_apply, fused.reference_apply, (x, params)),
             "warp": (fused.fused_warp_apply, fused.fused_warp_reference, (x, wp, params)),
@@ -325,13 +425,15 @@ def phase_augment_kernels():
             err = (out.float() - ref.float()).abs().max().item()
             tol = dict(atol=1e-5, rtol=0.0) if dtype == torch.float32 else BF16_TOL
             if out.dtype != dtype or not torch.allclose(out.float(), ref.float(), **tol):
-                raise AssertionError(f"{kind} kernel disagrees with its plain version at {(b, c, s, s)} {dtype}: {err}")
+                raise AssertionError(f"{kind} kernel disagrees with its plain version at {(b, c, s, s)} {dtype} ({case}): {err}")
             label = f"{kind} {(b, c, s, s)} {str(dtype).removeprefix('torch.')}"
-            if not timed:
+            if case != "timed":
+                label += f" ({case})"
                 log(f"augment {label}: max abs err {err:.3e} (within {tol})")
                 continue
             t_kernel = time_ms(lambda: kernel(*args), iters=20, warmup=3)
             t_plain = time_ms(lambda: plain(*args), iters=3, warmup=1)
+            log_split(f"augment {label}", lambda: kernel(*args))
             bound, by = bytes_bound_ms(aug_bytes(b, c, s, dtype), b * s * s * AUG_OPS_PER_PX[kind](c))
             results[(kind, c, dtype)] = (t_kernel, t_plain, bound, by, err)
             log(

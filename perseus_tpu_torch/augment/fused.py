@@ -371,12 +371,22 @@ def _entry(dtype: torch.dtype):
         ctypes.c_void_p, ctypes.c_void_p,  # images, out
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # scalars, fields, plasma
         ctypes.c_void_p, ctypes.c_void_p,  # warp params (B, 6), donor idx (B,) int32
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # seg counts, gray partials, rgb scratch
+        ctypes.c_void_p,  # scratch of _scratch_bytes()(b, h, w) bytes
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # b, c, h, w
         ctypes.c_float, ctypes.c_float,  # lb, ub
         ctypes.c_void_p,  # stream
     ]
     fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _scratch_bytes():
+    """(b, h, w) -> bytes of the kernels' scratch (RGB planes, per-tile gray
+    partials, means, seg counts), as csrc/augment.cu lays it out."""
+    fn = _build.load_library("augment").perseus_fused_augment_scratch_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int64
     return fn
 
 
@@ -400,6 +410,8 @@ def _launch(
     b, c, h, w = images.shape
     if not 3 <= c <= 8 or h < 3 or w < 3:
         raise ValueError(f"{name}: the kernel takes 3-8 channels and H, W >= 3, got {tuple(images.shape)}")
+    if b > 65535:
+        raise ValueError(f"{name}: at most 65535 images per launch, got {b}")
     if mode != "chain" and h != w:
         raise ValueError(f"{name}: the two-pass warp requires square images")
     if mode == "ultra" and c != 5:
@@ -424,17 +436,14 @@ def _launch(
     out = torch.empty_like(images)
     if out.numel() == 0:
         return out
-    nblk = (h * w + 1023) // 1024  # the kernel's pixels per block
-    counts = torch.zeros(b, dtype=torch.int32, device=dev)
-    partial = torch.empty((b, nblk), dtype=torch.float32, device=dev)
-    rgb = torch.empty((b, 3, h, w), dtype=torch.float32, device=dev)
+    scratch = torch.empty(_scratch_bytes()(b, h, w), dtype=torch.uint8, device=dev)
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _entry(images.dtype)(
             _MODE[mode], images.data_ptr(), out.data_ptr(), scalars.data_ptr(), fields.data_ptr(),
-            plasma.data_ptr(), ptr(warp_params), ptr(donor_idx), counts.data_ptr(),
-            partial.data_ptr(), rgb.data_ptr(), b, c, h, w, lb, ub, stream,
+            plasma.data_ptr(), ptr(warp_params), ptr(donor_idx), scratch.data_ptr(),
+            b, c, h, w, lb, ub, stream,
         )
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, cudaError {err}")

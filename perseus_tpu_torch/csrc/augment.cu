@@ -17,43 +17,66 @@
 //                  _warp_kernel (augment/warp.py::warp_affine_two_pass): the
 //                  two-pass warp alone, f32 in and out, any square size, the
 //                  swap transpose read in place. One thread per output pixel
-//                  computes its taps once (warp_taps, shared with stage1) and
-//                  walks the channels. Bound: bytes (the image read once, the
-//                  output written once, 40 B/px at C = 5); the 4 taps per
-//                  channel re-read neighbouring source pixels through L1/L2,
-//                  and a swapped image is read down its columns.
+//                  computes its taps once (warp_taps, shared with stage 1)
+//                  and walks the channels. Bound: bytes (the image read
+//                  once, the output written once, 40 B/px at C = 5); the 4
+//                  taps per channel re-read neighbouring source pixels
+//                  through L1/L2, and a swapped image is read down its
+//                  columns.
 //
 // Design. The TPU kernel holds a whole image in VMEM. A 256x256x5 f32 image
 // is 1.25 MiB, far above one SM's 227 KB of shared memory, and the chain
 // has two per-image reductions (the transplant's seg ratio, the contrast's
 // mean gray) and a 5x5 neighbourhood (the blur) in it, so it runs as up to
-// three launches on the same stream:
+// three launches on the same stream, each block on a 32x32 output tile of
+// one image:
 //
 //   (a) seg_count (ultra only): per image, the exact integer count of
-//       pixels whose new seg is 1 after the candidate transplant; the
-//       ratio gate ratio in [lb, ub] follows from it.
-//   (b) stage1: one thread per output pixel. It computes the source on the
-//       fly: the (transplanted if accepted, swapped) source pixel is read
-//       at (c, r) when swap is set, the donor by donor_idx in the same
-//       tensor (no gathered copy). The two-pass warp is 4 reads: for
-//       j in {j0, j0 + 1}, j0 = floor(gam[y, x]), the column tap is
-//       inter(y, j) = src(i0, j) v_w0 + src(i0 + 1, j) v_w1 with
-//       i0 = floor(rhoT[j, y]) (the row taps differ per column: this is
-//       not 2-D bilinear), blended with h_w0, h_w1 in _warp_planes' order.
-//       Then the two erase rects, the Planckian gains and brightness; RGB
-//       goes to an f32 scratch and its gray to a per-block partial sum
-//       (summed in a fixed order, so runs are deterministic). The depth
-//       chain is pointwise and seg passes through: both are stored here.
-//   (c) stage2: a 32x32 output tile per block with a 2-pixel halo in
-//       shared memory: contrast about the mean gray, saturation, hue, the
-//       5-tap separable reflect-padded blur (-1 -> 1, -2 -> 2; taps summed
-//       in _blur_plane's order), the plasma shadow, one cast at the store.
+//       pixels whose new seg is 1 after the candidate transplant, from
+//       4-pixel vector loads of the image's and the donor's depth and seg
+//       planes; the gate ratio in [lb, ub] follows from it.
+//   (b) stage 1: the source, the warp, the two erase rects, the Planckian
+//       gains and brightness; RGB goes to an f32 scratch and the tile's
+//       gray to a partial sum. The depth chain is pointwise and seg passes
+//       through: both are stored here. The two-pass warp of output (y, x)
+//       is 4 reads: for j in {j0, j0 + 1}, j0 = floor(gam[y, x]), the
+//       column tap inter(y, j) = src(i0, j) v_w0 + src(i0 + 1, j) v_w1
+//       with i0 = floor(rhoT[j, y]) (the row taps differ per column: this
+//       is not 2-D bilinear), blended with h_w0, h_w1 in _warp_planes'
+//       order. The last tile of an image to finish sums the image's tile
+//       partials in a fixed order into its mean gray (deterministic).
+//         ultra (Hopper redesign): the block first bounds every tap of its
+//       tile (their row and column ranges, reduced over the block), then
+//       stages that source box once in shared memory: the stored image and
+//       its donor read row by row, coalesced, the transplant applied once
+//       per source pixel, written transposed when the image is swapped
+//       (odd row pitch: no bank conflicts either way). Taps read the box.
+//       A tap outside the staged box (only when the box exceeds the
+//       kBoxPix budget, e.g. a zoom-out beyond the config's scale range)
+//       reads global memory through the same source function, so the
+//       values stay bit-identical. C = 5 is a compile-time constant: the
+//       per-pixel values live in registers. Every box of the default
+//       config's affines fits the budget (tests/test_torch_augment_cuda.py).
+//         chain and warp: each pixel loads its source (4 taps each, for
+//       the warp) from global memory, per channel.
+//   (c) stage 2: the tile with a 2-pixel halo in shared memory: contrast
+//       about the image's mean gray (one value, read by every block),
+//       saturation, hue, the 5-tap separable reflect-padded blur (-1 -> 1,
+//       -2 -> 2; taps summed in _blur_plane's order), the plasma shadow,
+//       one cast at the store.
 //
 // Bound on this card: bytes. Per pixel the chain does some 100 f32
 // operations, far below the compute rate; the least traffic is one read of
-// the image (and the donor), fields and plasma and one write of the output.
-// The RGB scratch (24 B/px) and the warp's repeated taps (served by L1/L2)
-// are what this simple design pays above that.
+// the image (its images are also the donors), fields and plasma and one
+// write of the output: 48 B/px at C = 5 in f32. The ultra design moves
+// about 110 B/px: the seg count's 16, the image and the taken donor pixels,
+// the RGB scratch written and read again (24), the halo. Measured
+// (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W) at (256, 5, 256, 256)
+// f32: 1.01 ms, of which seg count 0.07, stage 1 0.63, stage 2 0.30. (The
+// first version ran one thread per output pixel, loading each of the 4
+// taps' 5 channels and its donor's from global memory and evaluating the
+// transplant per tap, with 64-bit pixel indexing and runtime-indexed
+// per-pixel arrays in local memory: 3.0 ms there.)
 //
 // Traps, each handled where it bites below:
 //   * FMA contraction: the file is built with -fmad=false (models/_build.py)
@@ -65,25 +88,36 @@
 //   * Hue branch: the max channel is chosen by ordering compares, as in
 //     fused.py::_hue_planes, not by equality with the computed max.
 //   * bf16 storage: load, upcast, compute in f32, round once at the store
-//     (__float2bfloat16_rn). Fields and plasma always arrive as bf16.
+//     (__float2bfloat16_rn). Fields and plasma always arrive as bf16. The
+//     staged box holds the storage type: a transplanted value is a stored
+//     value or a seg of 0 / 1, exact in bf16.
 //   * Exact masks: the transplant tests seg == 1.0 exactly.
 //
 // Plain C interface for ctypes; the entry returns the first non-zero
-// cudaGetLastError() of its launches, 0 when all were accepted.
+// CUDA error of its launches, 0 when all were accepted. The caller passes
+// one scratch buffer of perseus_fused_augment_scratch_bytes(b, h, w) bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
 constexpr int kScalars = 29;
 constexpr int kThreads = 256;
-constexpr int kPixPerBlock = 1024;  // stage (a)/(b) pixels per block; the wrapper sizes partials by it
 constexpr int kMaxC = 8;
-constexpr int kTile = 32;
+constexpr int kTile = 32;                            // output tile of stages 1 and 2
+constexpr int kTileRows = kThreads / kTile;          // a block is kTile x kTileRows threads
 constexpr int kHalo = kTile + 4;
+constexpr int kCountPix = 4096;                      // seg_count pixels per block
+constexpr int kUltraC = 5;
+// ultra's source box budget, pixels per channel: 5 x 2800 f32 is 56,000 B,
+// so four blocks fit an SM's 228 KB
+constexpr int kBoxPix = 2800;
+constexpr int kBoxMaxCols = 127;
 
 __device__ __forceinline__ float ld(float v) { return v; }
 __device__ __forceinline__ float ld(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -91,6 +125,19 @@ template <typename T> __device__ __forceinline__ T st(float v);
 template <> __device__ __forceinline__ float st<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 st<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+// 4 consecutive values, 16-byte (f32) or 8-byte (bf16) aligned
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  __nv_bfloat162 lo, hi;
+  memcpy(&lo, &u.x, 4);
+  memcpy(&hi, &u.y, 4);
+  v[0] = __low2float(lo); v[1] = __high2float(lo); v[2] = __low2float(hi); v[3] = __high2float(hi);
 }
 
 // torch.clamp(x, 0, 1): NaN stays NaN (fminf/fmaxf would drop it)
@@ -113,12 +160,34 @@ struct Args {
   const __nv_bfloat16* plasma;  // (B, H, W)
   const float* wp;              // (B, 6) or, for ultra, (B, 7) with the swap flag last
   const int* donor;             // (B,)
-  int* counts;                  // (B,) new-seg pixel counts, zeroed by the caller
-  float* partial;               // (B, nblk) gray partial sums
-  float* rgb;                   // (B, 3, H, W) f32 scratch
-  int b, c, h, w, nblk;
+  // the scratch buffer, carved by run()
+  int* counts;                  // (B,) new-seg pixel counts
+  int* tickets;                 // (B,) stage-1 tiles finished
+  float* partial;               // (B, ntiles) gray partial sums, one per stage-1 tile
+  float* mean;                  // (B,) mean gray
+  float* rgb;                   // (B, 3, H, W) f32
+  int b, c, h, w, ntiles;
   float lb, ub;
 };
+
+// The scratch layout (the one place that sizes it): the RGB planes, the
+// partials, the means, then the two integer arrays that run() zeroes.
+struct Scratch {
+  int64_t rgb, partial, mean, counts, tickets, bytes;
+};
+inline int tiles_of(int h, int w) {
+  return ((h + kTile - 1) / kTile) * ((w + kTile - 1) / kTile);
+}
+inline Scratch scratch_layout(int b, int h, int w) {
+  Scratch s;
+  s.rgb = 0;
+  s.partial = s.rgb + (int64_t)b * 3 * h * w * 4;
+  s.mean = s.partial + (int64_t)b * tiles_of(h, w) * 4;
+  s.counts = s.mean + (int64_t)b * 4;
+  s.tickets = s.counts + (int64_t)b * 4;
+  s.bytes = s.tickets + (int64_t)b * 4;
+  return s;
+}
 
 // The transplant's mask algebra at one pixel (fused.py::_transplant_planes).
 struct Transplant {
@@ -143,21 +212,37 @@ __device__ __forceinline__ bool accepted(const int* counts, int bi, int hw, floa
   return ratio >= lb && ratio <= ub;
 }
 
+template <typename T>
+__device__ __forceinline__ int donor_of(const Args<T>& a, int bi) {
+  const int d = a.donor[bi];
+  return d < 0 ? 0 : (d >= a.b ? a.b - 1 : d);
+}
+
 // (a) per image, the count of pixels whose candidate new seg is 1
 template <typename T>
-__global__ void seg_count(Args<T> a) {
+__global__ void __launch_bounds__(kThreads) seg_count(Args<T> a, bool vec) {
   const int bi = blockIdx.y;
-  const int64_t hw = (int64_t)a.h * a.w;
-  int d = a.donor[bi];
-  d = d < 0 ? 0 : (d >= a.b ? a.b - 1 : d);
-  const T* img = a.img + (int64_t)bi * a.c * hw;
-  const T* don = a.img + (int64_t)d * a.c * hw;
-  const int64_t end = min((int64_t)(blockIdx.x + 1) * kPixPerBlock, hw);
+  const int hw = a.h * a.w;
+  const int64_t plane = hw;
+  const T* img = a.img + (int64_t)bi * a.c * plane;
+  const T* don = a.img + (int64_t)donor_of(a, bi) * a.c * plane;
+  const T *dep = img + 3 * plane, *seg = img + 4 * plane;
+  const T *d_dep = don + 3 * plane, *d_seg = don + 4 * plane;
+  const int start = blockIdx.x * kCountPix, end = min(start + kCountPix, hw);
   int cnt = 0;
-  for (int64_t px = (int64_t)blockIdx.x * kPixPerBlock + threadIdx.x; px < end; px += kThreads) {
-    const Transplant t =
-        transplant(ld(img[3 * hw + px]), ld(img[4 * hw + px]), ld(don[3 * hw + px]), ld(don[4 * hw + px]));
-    cnt += t.seg == 1.0f;
+  if (vec) {  // hw % 4 == 0 and aligned planes: 4 pixels per load
+    for (int px = start + 4 * (int)threadIdx.x; px < end; px += 4 * kThreads) {
+      float v0[4], v1[4], v2[4], v3[4];
+      load4(dep + px, v0);
+      load4(seg + px, v1);
+      load4(d_dep + px, v2);
+      load4(d_seg + px, v3);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) cnt += transplant(v0[k], v1[k], v2[k], v3[k]).seg == 1.0f;
+    }
+  } else {
+    for (int px = start + (int)threadIdx.x; px < end; px += kThreads)
+      cnt += transplant(ld(dep[px]), ld(seg[px]), ld(d_dep[px]), ld(d_seg[px])).seg == 1.0f;
   }
   cnt = __reduce_add_sync(0xffffffffu, cnt);
   if ((threadIdx.x & 31) == 0 && cnt) atomicAdd(&a.counts[bi], cnt);  // integer: exact, any order
@@ -205,107 +290,241 @@ __device__ __forceinline__ Taps warp_taps(float i00, float i01, float t0, float 
   return tp;
 }
 
-// All channels of the source pixel at row i, column j of the warp's input:
-// the (transplanted if accepted) image, transposed when swap is set.
-template <typename T, int MODE>
-__device__ __forceinline__ void fetch(const Args<T>& a, const T* img, const T* don, int i, int j,
-                                      bool swap, bool accept, float* v) {
+// Per-image pointers of stage 1.
+template <typename T>
+struct Image {
+  const float* sv;
+  const __nv_bfloat16* fields;
+  T* out;
+  float* rgb;
+  int64_t hw;
+};
+template <typename T>
+__device__ __forceinline__ Image<T> image_of(const Args<T>& a, int bi) {
   const int64_t hw = (int64_t)a.h * a.w;
-  const int64_t px = src_offset(i, j, swap, a.w);
-  for (int k = 0; k < a.c; ++k) v[k] = ld(img[k * hw + px]);
-  if (MODE == 2 && accept) {
-    float dv[5];
-    for (int k = 0; k < 5; ++k) dv[k] = ld(don[k * hw + px]);
-    const Transplant t = transplant(v[3], v[4], dv[3], dv[4]);
-    if (t.take_donor)
-      for (int k = 0; k < 4; ++k) v[k] = dv[k];
-    v[4] = t.seg;
+  return {a.sv + (int64_t)bi * kScalars, a.fields + (int64_t)bi * 3 * hw, a.out + (int64_t)bi * a.c * hw,
+          a.rgb + (int64_t)bi * 3 * hw, hw};
+}
+
+// Stage 1 after the source: the erase rects, gains and brightness at
+// output pixel (y, x) (offset px in its plane) with source values v of c
+// channels; stores RGB to the scratch and depth / seg to the output and
+// returns the pixel's gray.
+template <typename T>
+__device__ __forceinline__ float stage1_tail(const Image<T>& im, int c, int y, int x, int px, float* v) {
+  const float* sv = im.sv;
+  const int64_t hw = im.hw;
+  const float yf = (float)y, xf = (float)x;
+  // two erase rects, on every channel
+  bool erase = false;
+  for (int o = 0; o <= 5; o += 5) {
+    const float top = sv[o + 1], left = sv[o + 2];
+    erase |= (yf >= top) && (yf < top + sv[o + 3]) && (xf >= left) && (xf < left + sv[o + 4]) &&
+             (sv[o] > 0.5f);
+  }
+  if (erase)
+    for (int k = 0; k < c; ++k) v[k] = 0.0f;
+  // Planckian gains + brightness
+  const float f_b = sv[12];
+  const float rr = clip01(clip01(v[0] * sv[10]) * f_b);
+  const float gg = clip01(v[1] * f_b);
+  const float bb = clip01(clip01(v[2] * sv[11]) * f_b);
+  im.rgb[px] = rr;
+  im.rgb[hw + px] = gg;
+  im.rgb[2 * hw + px] = bb;
+  if (c > 3) {
+    const float cs = sv[24];
+    float scaled = cs * v[3] + ld(im.fields[px]);
+    if (scaled < sv[25] + ld(im.fields[hw + px])) scaled = sv[26];
+    if (scaled > sv[27] + ld(im.fields[2 * hw + px])) scaled = sv[28];
+    im.out[3 * hw + px] = st<T>(scaled / cs);
+  }
+  for (int k = 4; k < c; ++k) im.out[k * hw + px] = st<T>(v[k]);
+  return rr * 0.299f + gg * 0.587f + bb * 0.114f;
+}
+
+// The end of stage 1: the block's gray (its threads' sums in a fixed order)
+// becomes the tile's partial; the last tile of the image to finish sums the
+// image's partials in a fixed order into its mean gray.
+template <typename T>
+__device__ __forceinline__ void finish_gray(const Args<T>& a, int bi, float gray_sum) {
+  __shared__ float warp_sums[kThreads / 32];
+  __shared__ bool last;
+  const int tid = threadIdx.y * kTile + threadIdx.x;
+  for (int off = 16; off > 0; off >>= 1) gray_sum += __shfl_down_sync(0xffffffffu, gray_sum, off);
+  if ((tid & 31) == 0) warp_sums[tid >> 5] = gray_sum;
+  __syncthreads();
+  if (tid == 0) {
+    float s = 0.0f;
+    for (int k = 0; k < kThreads / 32; ++k) s += warp_sums[k];
+    a.partial[(int64_t)bi * a.ntiles + blockIdx.y * gridDim.x + blockIdx.x] = s;
+    __threadfence();  // the partial is visible before the ticket is
+    last = atomicAdd(&a.tickets[bi], 1) == a.ntiles - 1;
+  }
+  __syncthreads();
+  if (last && tid < 32) {
+    __threadfence();
+    const float* part = a.partial + (int64_t)bi * a.ntiles;
+    float s = 0.0f;
+    for (int k = tid; k < a.ntiles; k += 32) s += __ldcg(part + k);  // L2: written by other SMs
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+    if (tid == 0) a.mean[bi] = s / (float)((int64_t)a.h * a.w);
   }
 }
 
-// (b) source / warp, erase, gains, brightness; depth chain; gray partials
+// (b) chain and warp: each pixel reads its source from global memory
 template <typename T, int MODE>
-__global__ void stage1(Args<T> a) {
-  const int bi = blockIdx.y;
+__global__ void __launch_bounds__(kThreads) stage1(Args<T> a) {
+  const int bi = blockIdx.z;
   const int h = a.h, w = a.w, c = a.c;
-  const int64_t hw = (int64_t)h * w;
-  const float* sv = a.sv + (int64_t)bi * kScalars;
+  const Image<T> im = image_of(a, bi);
+  const int64_t hw = im.hw;
   const T* img = a.img + (int64_t)bi * c * hw;
-  T* out = a.out + (int64_t)bi * c * hw;
-  float* rgb = a.rgb + (int64_t)bi * 3 * hw;
-  const __nv_bfloat16* fields = a.fields + (int64_t)bi * 3 * hw;
-
   float i00 = 0.f, i01 = 0.f, t0 = 0.f, p = 0.f, q = 0.f, r = 0.f;
-  bool swap = false, accept = false;
-  const T* don = img;
-  if (MODE >= 1) {
-    const float* wp = a.wp + (int64_t)bi * (MODE == 2 ? 7 : 6);
+  if (MODE == 1) {
+    const float* wp = a.wp + (int64_t)bi * 6;
     i00 = wp[0]; i01 = wp[1]; t0 = wp[2]; p = wp[3]; q = wp[4]; r = wp[5];
-    if (MODE == 2) {
-      swap = wp[6] > 0.5f;
-      accept = accepted(a.counts, bi, (int)hw, a.lb, a.ub);
-      int d = a.donor[bi];
-      d = d < 0 ? 0 : (d >= a.b ? a.b - 1 : d);
-      don = a.img + (int64_t)d * c * hw;
-    }
   }
-
+  const int x = blockIdx.x * kTile + threadIdx.x;
   float gray_sum = 0.0f;
-  const int64_t end = min((int64_t)(blockIdx.x + 1) * kPixPerBlock, hw);
-  for (int64_t px = (int64_t)blockIdx.x * kPixPerBlock + threadIdx.x; px < end; px += kThreads) {
-    const int y = (int)(px / w), x = (int)(px % w);
-    const float yf = (float)y, xf = (float)x;
+  for (int y = blockIdx.y * kTile + threadIdx.y; y < min(h, (int)(blockIdx.y + 1) * kTile); y += kTileRows) {
+    if (x >= w) break;
+    const int px = y * w + x;
     float v[kMaxC];
     if (MODE == 0) {
       for (int k = 0; k < c; ++k) v[k] = ld(img[k * hw + px]);
     } else {
-      const Taps tp = warp_taps(i00, i01, t0, p, q, r, yf, xf, h, w);
+      const Taps tp = warp_taps(i00, i01, t0, p, q, r, (float)y, (float)x, h, w);
       float inter[2][kMaxC];
       for (int t = 0; t < 2; ++t) {
-        float v0[kMaxC], v1[kMaxC];
-        fetch<T, MODE>(a, img, don, tp.i[t][0], tp.j[t], swap, accept, v0);
-        fetch<T, MODE>(a, img, don, tp.i[t][1], tp.j[t], swap, accept, v1);
-        for (int k = 0; k < c; ++k) inter[t][k] = v0[k] * tp.vwt[t][0] + v1[k] * tp.vwt[t][1];
+        const int64_t o0 = (int64_t)tp.i[t][0] * w + tp.j[t], o1 = (int64_t)tp.i[t][1] * w + tp.j[t];
+        for (int k = 0; k < c; ++k)
+          inter[t][k] = ld(img[k * hw + o0]) * tp.vwt[t][0] + ld(img[k * hw + o1]) * tp.vwt[t][1];
       }
       for (int k = 0; k < c; ++k) v[k] = inter[0][k] * tp.hwt[0] + inter[1][k] * tp.hwt[1];
     }
-    // two erase rects, on every channel
-    bool erase = false;
-    for (int o = 0; o <= 5; o += 5) {
-      const float top = sv[o + 1], left = sv[o + 2];
-      erase |= (yf >= top) && (yf < top + sv[o + 3]) && (xf >= left) && (xf < left + sv[o + 4]) &&
-               (sv[o] > 0.5f);
-    }
-    if (erase)
-      for (int k = 0; k < c; ++k) v[k] = 0.0f;
-    // Planckian gains + brightness
-    const float f_b = sv[12];
-    const float rr = clip01(clip01(v[0] * sv[10]) * f_b);
-    const float gg = clip01(v[1] * f_b);
-    const float bb = clip01(clip01(v[2] * sv[11]) * f_b);
-    rgb[px] = rr;
-    rgb[hw + px] = gg;
-    rgb[2 * hw + px] = bb;
-    gray_sum += rr * 0.299f + gg * 0.587f + bb * 0.114f;
-    if (c > 3) {
-      const float cs = sv[24];
-      float scaled = cs * v[3] + ld(fields[px]);
-      if (scaled < sv[25] + ld(fields[hw + px])) scaled = sv[26];
-      if (scaled > sv[27] + ld(fields[2 * hw + px])) scaled = sv[28];
-      out[3 * hw + px] = st<T>(scaled / cs);
-    }
-    for (int k = 4; k < c; ++k) out[k * hw + px] = st<T>(v[k]);
+    gray_sum += stage1_tail(im, c, y, x, px, v);
   }
-  // deterministic block sum: shuffle tree per warp, then warps in order
-  for (int off = 16; off > 0; off >>= 1) gray_sum += __shfl_down_sync(0xffffffffu, gray_sum, off);
-  __shared__ float warp_sums[kThreads / 32];
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = gray_sum;
+  finish_gray(a, bi, gray_sum);
+}
+
+// All 5 channels of the ultra source at row i, column j of the warp's
+// input: the (transplanted if accepted) image, transposed when swap is set.
+// The staged box and the taps outside it both come from here.
+template <typename T>
+__device__ __forceinline__ void ultra_source(const T* img, const T* don, int64_t hw, int w, int i, int j,
+                                             bool swap, bool accept, float* v) {
+  const int64_t px = src_offset(i, j, swap, w);
+#pragma unroll
+  for (int k = 0; k < kUltraC; ++k) v[k] = ld(img[k * hw + px]);
+  if (accept) {
+    const float d_depth = ld(don[3 * hw + px]);
+    const Transplant t = transplant(v[3], v[4], d_depth, ld(don[4 * hw + px]));
+    if (t.take_donor) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) v[k] = ld(don[k * hw + px]);
+      v[3] = d_depth;
+    }
+    v[4] = t.seg;
+  }
+}
+
+// (b) ultra: the tile's source box staged in shared memory, then the taps
+// (at most 64 registers: the four blocks per SM that the f32 box allows)
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 4) stage1_ultra(Args<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* box = reinterpret_cast<T*>(smem_raw);  // [kUltraC][rows][pitch]
+  __shared__ int s_lim[4];                  // i min, i max, j min, j max of the tile's taps
+  const int bi = blockIdx.z;
+  const int h = a.h, w = a.w;
+  const Image<T> im = image_of(a, bi);
+  const int64_t hw = im.hw;
+  const T* img = a.img + (int64_t)bi * kUltraC * hw;
+  const T* don = a.img + (int64_t)donor_of(a, bi) * kUltraC * hw;
+  const float* wp = a.wp + (int64_t)bi * 7;
+  const float i00 = wp[0], i01 = wp[1], t0 = wp[2], p = wp[3], q = wp[4], r = wp[5];
+  const bool swap = wp[6] > 0.5f;
+  const bool accept = accepted(a.counts, bi, h * w, a.lb, a.ub);
+  const int tid = threadIdx.y * kTile + threadIdx.x;
+  const int x = blockIdx.x * kTile + threadIdx.x;
+  const int y_end = min(h, (int)(blockIdx.y + 1) * kTile);
+
+  // 1. the rows and columns the tile's taps reach (clamped, as read)
+  if (tid == 0) {
+    s_lim[0] = s_lim[2] = INT_MAX;
+    s_lim[1] = s_lim[3] = INT_MIN;
+  }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.0f;
-    for (int k = 0; k < kThreads / 32; ++k) s += warp_sums[k];
-    a.partial[(int64_t)bi * a.nblk + blockIdx.x] = s;
+  int lim[4] = {INT_MAX, INT_MIN, INT_MAX, INT_MIN};
+  for (int y = blockIdx.y * kTile + threadIdx.y; y < y_end && x < w; y += kTileRows) {
+    const Taps tp = warp_taps(i00, i01, t0, p, q, r, (float)y, (float)x, h, w);
+    lim[0] = min(lim[0], min(min(tp.i[0][0], tp.i[0][1]), min(tp.i[1][0], tp.i[1][1])));
+    lim[1] = max(lim[1], max(max(tp.i[0][0], tp.i[0][1]), max(tp.i[1][0], tp.i[1][1])));
+    lim[2] = min(lim[2], min(tp.j[0], tp.j[1]));
+    lim[3] = max(lim[3], max(tp.j[0], tp.j[1]));
   }
+  lim[0] = __reduce_min_sync(0xffffffffu, lim[0]);
+  lim[1] = __reduce_max_sync(0xffffffffu, lim[1]);
+  lim[2] = __reduce_min_sync(0xffffffffu, lim[2]);
+  lim[3] = __reduce_max_sync(0xffffffffu, lim[3]);
+  if ((tid & 31) == 0 && lim[0] <= lim[1]) {
+    atomicMin(&s_lim[0], lim[0]);
+    atomicMax(&s_lim[1], lim[1]);
+    atomicMin(&s_lim[2], lim[2]);
+    atomicMax(&s_lim[3], lim[3]);
+  }
+  __syncthreads();
+  // the box, cut to the budget when it exceeds it (the rest reads global)
+  const int i0 = s_lim[0], j0 = s_lim[2];
+  const int ncols = min(s_lim[3] - j0 + 1, kBoxMaxCols);
+  const int pitch = ncols | 1;
+  const int nrows = min(s_lim[1] - i0 + 1, kBoxPix / pitch);
+
+  // 2. stage the box: stored rows by warp, stored columns by lane
+  if (nrows > 0) {
+    const int sr0 = swap ? j0 : i0, sc0 = swap ? i0 : j0;
+    const int n_sr = swap ? ncols : nrows, n_sc = swap ? nrows : ncols;
+    for (int sr = tid >> 5; sr < n_sr; sr += kThreads / 32) {
+      for (int sc = tid & 31; sc < n_sc; sc += 32) {
+        // stored (sr0 + sr, sc0 + sc) is the warp input's (i, j) = (row, col), or (col, row) when swapped
+        const int li = swap ? sc : sr, lj = swap ? sr : sc;
+        float v[kUltraC];
+        ultra_source(img, don, hw, w, i0 + li, j0 + lj, swap, accept, v);
+#pragma unroll
+        for (int k = 0; k < kUltraC; ++k) box[(k * nrows + li) * pitch + lj] = st<T>(v[k]);
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. the taps, from the box where they fall in it
+  float gray_sum = 0.0f;
+  for (int y = blockIdx.y * kTile + threadIdx.y; y < y_end && x < w; y += kTileRows) {
+    const Taps tp = warp_taps(i00, i01, t0, p, q, r, (float)y, (float)x, h, w);
+    float inter[2][kUltraC];
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      float s[2][kUltraC];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int li = tp.i[t][u] - i0, lj = tp.j[t] - j0;
+        if ((unsigned)li < (unsigned)nrows && (unsigned)lj < (unsigned)ncols) {
+#pragma unroll
+          for (int k = 0; k < kUltraC; ++k) s[u][k] = ld(box[(k * nrows + li) * pitch + lj]);
+        } else {
+          ultra_source(img, don, hw, w, tp.i[t][u], tp.j[t], swap, accept, s[u]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kUltraC; ++k) inter[t][k] = s[0][k] * tp.vwt[t][0] + s[1][k] * tp.vwt[t][1];
+    }
+    float v[kUltraC];
+#pragma unroll
+    for (int k = 0; k < kUltraC; ++k) v[k] = inter[0][k] * tp.hwt[0] + inter[1][k] * tp.hwt[1];
+    gray_sum += stage1_tail(im, kUltraC, y, x, y * w + x, v);
+  }
+  finish_gray(a, bi, gray_sum);
 }
 
 __device__ void hue_rotate(float r, float g, float b, float shift, float* o) {
@@ -349,10 +568,9 @@ __device__ __forceinline__ int reflect(int i, int n) {
 
 // (c) contrast, saturation, hue, blur, shadow on a 32x32 tile + halo
 template <typename T>
-__global__ void stage2(Args<T> a) {
+__global__ void __launch_bounds__(kThreads) stage2(Args<T> a) {
   __shared__ float s_in[3][kHalo][kHalo + 1];
   __shared__ float s_v[3][kTile][kHalo + 1];
-  __shared__ float s_mean;
   const int bi = blockIdx.z;
   const int h = a.h, w = a.w;
   const int64_t hw = (int64_t)h * w;
@@ -360,17 +578,11 @@ __global__ void stage2(Args<T> a) {
   const float* rgb = a.rgb + (int64_t)bi * 3 * hw;
   const int y0 = blockIdx.y * kTile, x0 = blockIdx.x * kTile;
   const int tid = threadIdx.y * kTile + threadIdx.x;
-  if (tid == 0) {
-    float s = 0.0f;
-    for (int k = 0; k < a.nblk; ++k) s += a.partial[(int64_t)bi * a.nblk + k];
-    s_mean = s / (float)hw;
-  }
-  __syncthreads();
-  const float mean_gray = s_mean;
+  const float mean_gray = a.mean[bi];
   const float f_c = sv[13], f_s = sv[14], f_h = sv[15];
   for (int idx = tid; idx < kHalo * kHalo; idx += kThreads) {
     const int ty = idx / kHalo, tx = idx % kHalo;
-    const int64_t px = (int64_t)reflect(y0 + ty - 2, h) * w + reflect(x0 + tx - 2, w);
+    const int px = reflect(y0 + ty - 2, h) * w + reflect(x0 + tx - 2, w);
     float r = rgb[px], g = rgb[hw + px], b = rgb[2 * hw + px];
     r = clip01(f_c * r + (1.0f - f_c) * mean_gray);
     g = clip01(f_c * g + (1.0f - f_c) * mean_gray);
@@ -407,10 +619,10 @@ __global__ void stage2(Args<T> a) {
   const float intensity = sv[22], quantity = sv[23];
   const __nv_bfloat16* plasma = a.plasma + (int64_t)bi * hw;
   T* out = a.out + (int64_t)bi * a.c * hw;
-  for (int ty = threadIdx.y; ty < kTile; ty += kThreads / kTile) {
+  for (int ty = threadIdx.y; ty < kTile; ty += kTileRows) {
     const int y = y0 + ty, x = x0 + threadIdx.x;
     if (y >= h || x >= w) continue;
-    const int64_t px = (int64_t)y * w + x;
+    const int px = y * w + x;
     const float delta_sh = intensity * (ld(plasma[px]) < quantity ? 1.0f : 0.0f);
     for (int ch = 0; ch < 3; ++ch) {
       float val;
@@ -427,28 +639,41 @@ __global__ void stage2(Args<T> a) {
 
 template <typename T>
 int run(int mode, const void* img, void* out, const void* sv, const void* fields,
-        const void* plasma, const void* wp, const void* donor, void* counts, void* partial,
-        void* rgb, int b, int c, int h, int w, float lb, float ub, void* stream) {
+        const void* plasma, const void* wp, const void* donor, void* scratch, int b, int c, int h,
+        int w, float lb, float ub, void* stream) {
   if (b == 0 || h == 0 || w == 0) return 0;
-  if (c < 3 || c > kMaxC || (mode == 2 && c != 5) || mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
-  const int64_t hw = (int64_t)h * w;
+  if (c < 3 || c > kMaxC || (mode == 2 && c != kUltraC) || mode < 0 || mode > 2 || b > 65535 ||
+      (int64_t)h * w >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const Scratch lay = scratch_layout(b, h, w);
+  char* base = (char*)scratch;
   Args<T> a{(const T*)img, (T*)out, (const float*)sv, (const __nv_bfloat16*)fields,
-            (const __nv_bfloat16*)plasma, (const float*)wp, (const int*)donor, (int*)counts,
-            (float*)partial, (float*)rgb, b, c, h, w, (int)((hw + kPixPerBlock - 1) / kPixPerBlock),
-            lb, ub};
+            (const __nv_bfloat16*)plasma, (const float*)wp, (const int*)donor,
+            (int*)(base + lay.counts), (int*)(base + lay.tickets), (float*)(base + lay.partial),
+            (float*)(base + lay.mean), (float*)(base + lay.rgb), b, c, h, w, tiles_of(h, w), lb, ub};
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid1(a.nblk, b);
   int err;
+  // the seg counts and the tile tickets start at 0
+  if ((err = (int)cudaMemsetAsync(base + lay.counts, 0, lay.bytes - lay.counts, s))) return err;
   if (mode == 2) {
-    seg_count<T><<<grid1, kThreads, 0, s>>>(a);
+    const int hw = h * w;
+    const bool vec = hw % 4 == 0 && ((uintptr_t)img % 16) == 0;
+    seg_count<T><<<dim3((hw + kCountPix - 1) / kCountPix, b), kThreads, 0, s>>>(a, vec);
     if ((err = (int)cudaGetLastError())) return err;
   }
-  if (mode == 0) stage1<T, 0><<<grid1, kThreads, 0, s>>>(a);
-  else if (mode == 1) stage1<T, 1><<<grid1, kThreads, 0, s>>>(a);
-  else stage1<T, 2><<<grid1, kThreads, 0, s>>>(a);
+  const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile, b), block(kTile, kTileRows);
+  if (mode == 0) {
+    stage1<T, 0><<<grid, block, 0, s>>>(a);
+  } else if (mode == 1) {
+    stage1<T, 1><<<grid, block, 0, s>>>(a);
+  } else {
+    const int box_bytes = kUltraC * kBoxPix * (int)sizeof(T);
+    err = (int)cudaFuncSetAttribute(stage1_ultra<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, box_bytes);
+    if (err) return err;
+    stage1_ultra<T><<<grid, block, box_bytes, s>>>(a);
+  }
   if ((err = (int)cudaGetLastError())) return err;
-  const dim3 grid2((w + kTile - 1) / kTile, (h + kTile - 1) / kTile, b);
-  stage2<T><<<grid2, dim3(kTile, kThreads / kTile), 0, s>>>(a);
+  stage2<T><<<grid, block, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -489,20 +714,22 @@ extern "C" int perseus_warp_affine_f32(const void* img, void* out, const void* w
   return (int)cudaGetLastError();
 }
 
+extern "C" int64_t perseus_fused_augment_scratch_bytes(int b, int h, int w) {
+  return scratch_layout(b, h, w).bytes;
+}
+
 extern "C" int perseus_fused_augment_f32(int mode, const void* img, void* out, const void* sv,
                                          const void* fields, const void* plasma, const void* wp,
-                                         const void* donor, void* counts, void* partial, void* rgb,
-                                         int b, int c, int h, int w, float lb, float ub,
-                                         void* stream) {
-  return run<float>(mode, img, out, sv, fields, plasma, wp, donor, counts, partial, rgb, b, c, h,
-                    w, lb, ub, stream);
+                                         const void* donor, void* scratch, int b, int c, int h,
+                                         int w, float lb, float ub, void* stream) {
+  return run<float>(mode, img, out, sv, fields, plasma, wp, donor, scratch, b, c, h, w, lb, ub,
+                    stream);
 }
 
 extern "C" int perseus_fused_augment_bf16(int mode, const void* img, void* out, const void* sv,
                                           const void* fields, const void* plasma, const void* wp,
-                                          const void* donor, void* counts, void* partial,
-                                          void* rgb, int b, int c, int h, int w, float lb,
-                                          float ub, void* stream) {
-  return run<__nv_bfloat16>(mode, img, out, sv, fields, plasma, wp, donor, counts, partial, rgb,
-                            b, c, h, w, lb, ub, stream);
+                                          const void* donor, void* scratch, int b, int c, int h,
+                                          int w, float lb, float ub, void* stream) {
+  return run<__nv_bfloat16>(mode, img, out, sv, fields, plasma, wp, donor, scratch, b, c, h, w,
+                            lb, ub, stream);
 }

@@ -24,6 +24,7 @@ from perseus_tpu.augment.pipeline import AugmentationConfig as JAugConfig
 from perseus_tpu.augment.pipeline import KeypointAugmentation as JAug
 from perseus_tpu_torch.augment import fused, ops
 from perseus_tpu_torch.augment.pipeline import AugmentationConfig, KeypointAugmentation
+from tests.test_torch_augment_cuda import AFFINE_SWEEP
 
 B, S = 4, 48
 BF16_TOL = dict(rtol=2**-7, atol=2**-9)
@@ -118,6 +119,25 @@ def test_fused_ultra_apply_plain_matches_jax(storage):
     assert np.array_equal(np.asarray(cand[0]), x[0]) and not np.array_equal(np.asarray(cand[2]), x[2])
     port_cand = ops.transplant_with_depth(_nchw(x), _t(donor))
     np.testing.assert_array_equal(_nhwc(port_cand), np.asarray(cand))
+
+
+@pytest.mark.parametrize("part", [0, 1])
+def test_fused_ultra_apply_plain_matches_jax_over_affine_extremes(part):
+    """The plain ultra version against JAX's kernel over the affine sweep
+    the CUDA kernel is checked at on the card, in two batches of B, each
+    with image 0's transplant rejected (the batch shape of
+    test_fused_ultra_apply_plain_matches_jax, so JAX compiles nothing new)."""
+    rows = np.asarray(AFFINE_SWEEP[B * part : B * part + B], np.float32).T
+    aff = dict(angle=rows[0], scale=rows[1], shear_x=rows[2], shear_y=rows[3], tx=rows[4] * S, ty=rows[5] * S)
+    aff = {k: jnp.asarray(v, jnp.float32) for k, v in aff.items()} | {"applied": jnp.ones(B, bool)}
+    swap, parts = jops._two_pass_params(jops._invert_affine(jops.affine_matrices(aff, S, S)))
+    x = _images(5, seed=30 + part)
+    p = jfused.sample_fused_params(jax.random.key(30 + part), JAugConfig(), B, S, S, 5)
+    donor = jnp.asarray([1, 2, 3, 0], jnp.int32)
+    wp = jnp.stack(parts, axis=-1).astype(jnp.float32)
+    ref = np.asarray(jfused.fused_ultra_apply(jnp.asarray(x), donor, swap, wp, p, interpret=True))
+    out = fused.fused_ultra_apply(_nchw(x), _t(donor), _t(swap), _t(wp), _port_params(p))
+    np.testing.assert_allclose(_nhwc(out), ref, atol=1e-5)
 
 
 def test_augment_helpers_match_jax():

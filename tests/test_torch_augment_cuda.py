@@ -1,8 +1,9 @@
 """The augmentation's CUDA kernels (perseus_tpu_torch/csrc/augment.cu: the
 fused chain's three and the two-pass warp) against their plain PyTorch
-versions, on the card. These tests need a CUDA
-card and skip without one; the file imports no JAX, so that the card's
-machine (which has none) runs it:
+versions, on the card. These tests need a CUDA card and skip without one
+(all but the check of the ultra kernel's shared-memory budget, which runs
+on the CPU); the file imports no JAX, so that the card's machine (which
+has none) runs it:
 
     python -m pytest tests/test_torch_augment_cuda.py -m cuda --noconftest -q
 
@@ -12,6 +13,9 @@ one bf16 ulp (rtol 2^-7, atol 2^-9) for bf16 storage; the warp exact at the
 identity.
 """
 
+import os
+import re
+
 import pytest
 import torch
 
@@ -19,6 +23,22 @@ from perseus_tpu_torch.augment import fused, ops, warp
 from perseus_tpu_torch.augment.pipeline import AugmentationConfig
 
 BF16_TOL = dict(rtol=2**-7, atol=2**-9)
+
+# (angle deg, forward scale, shear_x deg, shear_y deg, tx, ty as fractions of
+# the size): the augmentation config's extremes (degrees 90, scale 0.9-1.5,
+# shear 0.1, translate 0.1), images swapped (|angle| > 45) and not, the
+# identity, and a zoom-out past the config (scale 0.3) whose tiles' source
+# boxes exceed the ultra kernel's shared-memory budget
+AFFINE_SWEEP = (
+    (90.0, 0.9, 0.1, -0.1, 0.1, -0.1),
+    (-90.0, 1.5, -0.1, 0.1, -0.1, 0.1),
+    (45.0, 0.9, 0.1, 0.1, 0.1, 0.1),
+    (-45.0, 1.5, -0.1, -0.1, -0.1, -0.1),
+    (60.0, 1.2, 0.1, -0.1, -0.1, 0.1),
+    (-30.0, 0.9, -0.1, 0.1, 0.1, 0.0),
+    (0.0, 1.0, 0.0, 0.0, 0.0, 0.0),
+    (30.0, 0.3, 0.0, 0.0, 0.0, 0.0),
+)
 
 
 @pytest.mark.cuda
@@ -48,6 +68,70 @@ def test_cuda_kernels_match_plain_versions(storage):
             assert kernel.launches == before + 1
             tol = dict(atol=1e-5, rtol=0) if storage == torch.float32 else BF16_TOL
             torch.testing.assert_close(out.float(), plain(*args).float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_ultra_kernel_over_affine_sweep(storage):
+    """The ultra kernel (#6) over AFFINE_SWEEP, one image per affine, with
+    swapped and unswapped images, accepted and rejected transplants (image 0
+    and its donor carry no cube), at sizes that are not multiples of its
+    32-pixel tile; the zoom-out's taps leave the staged box."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels have no CPU mode (run chip_smoke.py on the card)")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    b = len(AFFINE_SWEEP)
+    for s in (37, 129):
+        x = torch.rand((b, 5, s, s), device="cuda", generator=gen)
+        x[:, 3] = 3.0 + 11.0 * x[:, 3]
+        x[:, 4] = (x[:, 4] < 0.4).float()
+        x[:2, 4] = 0.0
+        col = torch.tensor(AFFINE_SWEEP, device="cuda").T
+        aff = {"angle": col[0], "scale": col[1], "shear_x": col[2], "shear_y": col[3], "tx": col[4] * s,
+               "ty": col[5] * s, "applied": torch.ones(b, dtype=torch.bool, device="cuda")}
+        swap, parts = ops._two_pass_params(ops._invert_affine(ops.affine_matrices(aff, s, s)))
+        donor = (torch.arange(b, device="cuda") + 1) % b
+        accepted = (ops.transplant_with_depth(x, donor) != x).flatten(1).any(1)
+        assert swap.any() and not swap.all() and accepted.any() and not accepted.all()
+        args = (x.to(storage), donor, swap, torch.stack(parts, dim=-1),
+                fused.sample_fused_params(gen, AugmentationConfig(), b, s, s, 5))
+        out = fused.fused_ultra_apply(*args)
+        torch.cuda.synchronize()
+        tol = dict(atol=1e-5, rtol=0) if storage == torch.float32 else BF16_TOL
+        torch.testing.assert_close(out.float(), fused.fused_ultra_reference(*args).float(), **tol)
+
+
+def test_ultra_source_boxes_fit_the_kernel_budget():
+    """The ultra kernel stages each output tile's source box (the rows and
+    columns its taps reach, clamped as warp_taps clamps them) in shared
+    memory, kBoxPix pixels per channel with an odd row pitch; a tap outside
+    it reads global memory (right, but slower). Every tile of the default
+    config's affines at 256x256 must fit."""
+    with open(os.path.join(os.path.dirname(fused.__file__), "..", "csrc", "augment.cu")) as f:
+        src = f.read()
+    budget = int(re.search(r"constexpr int kBoxPix = (\d+);", src).group(1))
+    tile = int(re.search(r"constexpr int kTile = (\d+);", src).group(1))
+    cfg, b, s = AugmentationConfig(), 64, 256
+    aff = ops.sample_affine_params(torch.Generator().manual_seed(0), b, s, s, degrees=cfg.degrees,
+                                   translate=cfg.translate, scale=cfg.scale, shear=cfg.shear)
+    aff["applied"][:] = True
+    swap, parts = ops._two_pass_params(ops._invert_affine(ops.affine_matrices(aff, s, s)))
+    assert swap.any() and not swap.all()
+    i00, i01, t0, p, q, r = (t[:, None, None] for t in parts)
+    ys = torch.arange(s, dtype=torch.float32)[None, :, None]
+    xs = torch.arange(s, dtype=torch.float32)[None, None, :]
+    j0 = torch.floor(i01 * ys + i00 * xs + t0).long()
+    rows, cols = [], []
+    for t in (0, 1):
+        j = (j0 + t).clamp(0, s - 1)
+        i0 = torch.floor(q * ys + p * j.float() + r).long()
+        rows += [(i0 + u).clamp(0, s - 1) for u in (0, 1)]
+        cols.append(j)
+    n = s // tile
+    per_tile = lambda v, red: red(torch.stack(v).reshape(len(v), b, n, tile, n, tile), (0, 3, 5))  # noqa: E731
+    nrows = per_tile(rows, torch.amax) - per_tile(rows, torch.amin) + 1
+    pitch = (per_tile(cols, torch.amax) - per_tile(cols, torch.amin) + 1) | 1
+    assert (nrows * pitch).max().item() <= budget
 
 
 @pytest.mark.cuda

@@ -111,7 +111,7 @@ def _tied_input(shape, seed):
     return np.round(rng.normal(size=shape) * 1.5).astype(np.float32)
 
 
-@pytest.mark.parametrize("shape", [(2, 16, 24, 8), (1, 8, 8, 64)])
+@pytest.mark.parametrize("shape", [(2, 16, 24, 8), (1, 8, 8, 64), (2, 18, 22, 4), (1, 6, 10, 8)])
 def test_backward_reference_matches_pallas_kernel_exactly_with_ties(shape):
     jax, jnp, _, fwd, bwd = _jax_bwd()
     x = _tied_input(shape, seed=shape[-1])
@@ -190,7 +190,9 @@ def test_cuda_backward_kernel_matches_reference_exactly(dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the kernel has no CPU mode (run chip_smoke.py on the card)")
     gen = torch.Generator().manual_seed(7)
-    for shape in [(2, 64, 128, 128), (2, 8, 31, 17), (1, 3, 1, 1)]:
+    # the stem's shape, odd H and W, a 1x1 plane, a width that is not a
+    # multiple of the kernel's 8-column groups
+    for shape in [(256, 64, 128, 128), (2, 8, 31, 17), (1, 3, 1, 1), (2, 4, 18, 22)]:
         x = torch.round(torch.randn(shape, generator=gen) * 1.5).to("cuda", dtype).requires_grad_()
         y = pool.max_pool_3x3_s2(x)
         g = torch.randn(y.shape, generator=gen).to("cuda", dtype)
@@ -199,3 +201,14 @@ def test_cuda_backward_kernel_matches_reference_exactly(dtype):
         torch.cuda.synchronize()
         assert pool.max_pool_3x3_s2_backward.launches == before + 1
         assert torch.equal(x.grad, pool.max_pool_3x3_s2_backward_reference(x.detach(), y.detach(), g))
+    # contiguous views one element past a 16-byte boundary: the scalar path
+    x = torch.round(torch.randn((2, 8, 32, 64), generator=gen) * 1.5).to("cuda", dtype)
+    y = pool.max_pool_3x3_s2(x)
+    g = torch.randn(y.shape, generator=gen).to("cuda", dtype)
+    views = []
+    for t in (x, y, g):
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device="cuda")
+        views.append(buf[1:].view(t.shape).copy_(t))
+    out = pool.max_pool_3x3_s2_backward(*views)
+    assert views[0].data_ptr() % 16 != 0
+    assert torch.equal(out, pool.max_pool_3x3_s2_backward_reference(x, y, g))
