@@ -13,21 +13,25 @@ non-zero exit:
      shared memory (ptxas -v) and the integer divisions in its SASS;
   3. each kernel against its plain PyTorch version, on the card, at the main
      paths' shapes plus odd shapes: the stem maxpool forward (exact, with
-     NaN/-inf inputs) and gradient (exact, with forced ties, odd sizes, a
-     width that is not a multiple of 8, unaligned views), the three fused
-     augmentation kernels at (256, 5, 256, 256) in f32 (atol 1e-5) and bf16
-     (one ulp: rtol 2^-7, atol 2^-9) and at (256, 4, 256, 256) f32 (the
-     4-channel warp branch's input), with a swapped image and a rejected
-     transplant for the ultra kernel, and over a sweep of affines (the
-     config's extremes and a zoom-out past it) at sizes 37, 129 and 256;
-     CUDA-event times of the kernel, the plain version and, where one
+     NaN/-inf inputs, odd sizes, widths that are not a multiple of 16 or 8,
+     unaligned views and a batch slice) and gradient (exact, with forced
+     ties, odd sizes, a width that is not a multiple of 8, unaligned views),
+     the three fused augmentation kernels at (256, 5, 256, 256) in f32 (atol
+     1e-5) and bf16 (one ulp: rtol 2^-7, atol 2^-9) and at (256, 4, 256,
+     256) f32 (the 4-channel warp branch's input), with a swapped image and
+     a rejected transplant for the ultra kernel, and over a sweep of affines
+     (the config's extremes and a zoom-out past it) at sizes 37, 129 and
+     256; CUDA-event times of the kernel, the plain version and, where one
      exists, the PyTorch library call that computes the same function, and
      each timed kernel's device time split over its launches (torch.profiler,
-     kernels only); the two-pass affine warp (#3) at
-     (256, 5, 256, 256) f32 with affines to +-90 deg and shear 10 deg (atol
-     1e-5), exact at the identity, and at (3, 5, 37, 37) and (2, 4, 129,
-     129), timed beside F.grid_sample (a direct 2-D bilinear warp, another
-     function: a yardstick only);
+     kernels only), for the maxpool forward also beside F.max_pool2d's and
+     with the host time of a call; the two-pass affine warp (#3) with every
+     image in both orientations, within 1e-5 and exact at the identity: at
+     (256, 5, 256, 256) f32 with affines to +-90 deg and shear 10 deg (its
+     swapped and unswapped images also timed as batches of their own), at
+     (3, 5, 37, 37) and (2, 4, 129, 129), and over the sweep of affines at
+     sizes 37, 129 and 256 with 5 and 4 channels; timed beside F.grid_sample
+     (a direct 2-D bilinear warp, another function: a yardstick only);
   4. the detector train step at the default TrainConfig: batch 256 of
      5-channel 256x256 synthetic frames, fused ultra augmentation, ResNet-18
      in bf16 with f32 params, SmoothL1, clip + AdamW; 3 warm-up steps, then
@@ -104,6 +108,36 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_turns(fns: dict, rounds: int = 7, iters: int = 50) -> dict:
+    """Median over ``rounds`` of each function's mean time per call (CUDA
+    events over ``iters`` back-to-back calls), the functions taking turns
+    in every round, so that a drift of the shared host's speed falls on all
+    of them alike."""
+    import statistics
+
+    runs = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            runs[name].append(time_ms(fn, iters=iters, warmup=3))
+    return {name: statistics.median(v) for name, v in runs.items()}
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time of one call, on the host clock over ``calls`` back-to-back
+    calls (the enqueue: a kernel shorter than its launch path never holds
+    the host back)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    out = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return out
+
+
 def same(a, b) -> bool:
     """Equal values and equal NaN positions."""
     import torch
@@ -111,21 +145,28 @@ def same(a, b) -> bool:
     return bool(torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
 
 
-def log_split(label: str, fn, calls: int = 5) -> None:
+def log_split(label: str, fn, calls: int = 5, host: bool = False) -> None:
     """Logs the device time of each kernel that ``calls`` calls of ``fn``
-    launch, from torch.profiler (kernels only), longest first. The profiler
-    is a diagnostic here, so its failure is reported, not fatal."""
+    launch, from torch.profiler (kernels only), longest first. With
+    ``host``, also where a call's host time goes: its wall on the host clock
+    over 200 back-to-back calls (the enqueue: the device's work hides
+    behind it unless the device is slower) and the profiler's CPU-side
+    events per call (ATen ops, CUDA runtime calls; the profiler inflates
+    them), longest first; what they leave of the wall is Python. The
+    profiler is a diagnostic here, so its failure is reported, not fatal."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     try:
         fn()
         torch.cuda.synchronize()
+        host_time = host_us(fn) if host else None
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = prof.key_averages()
+        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     except Exception as exc:  # noqa: BLE001
         log(f"{label} split: not measured (profiler: {exc!r})")
         return
@@ -135,6 +176,12 @@ def log_split(label: str, fn, calls: int = 5) -> None:
         f"{sum(e.count for e in kernels) / calls:g} launches")
     for e in kernels:
         log(f"{label} split:   {e.key[:100]}: {e.self_device_time_total / calls:.3f} us ({e.count / calls:g} launches)")
+    if host:
+        cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU and e.self_cpu_time_total > 0]
+        cpu.sort(key=lambda e: e.self_cpu_time_total, reverse=True)
+        log(f"{label} host: {host_time:.3f} us per call (host clock, 200 back-to-back calls); CPU events per call "
+            f"(torch.profiler, self time): {sum(e.self_cpu_time_total for e in cpu) / calls:.3f} us: "
+            + ", ".join(f"{e.key} {e.self_cpu_time_total / calls:.3f}" for e in cpu[:6]))
 
 
 def phase_device():
@@ -156,8 +203,8 @@ def phase_build():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool_:  # one nvcc process per source
         paths = list(pool_.map(_build.build, SOURCES))
-    for name in SOURCES:
-        _build.load_library(name)
+    _build.load_module("maxpool")  # as each wrapper binds its library
+    _build.load_library("augment")
     log(f"built {paths} in {time.perf_counter() - t0:.3f} s")
     for name in SOURCES:  # ptxas -v and the SASS's integer divisions, per kernel
         for line in _build.build_report(name):
@@ -180,29 +227,52 @@ def pool_bound_ms(shape, dtype) -> tuple[float, str]:
 
 
 def phase_pool_kernel(main_shape, main_dtype):
+    """The maxpool forward kernel against its plain version, exactly (equal
+    values and NaN positions), at the stem's shapes (train batch 256 and the
+    serving frame's batch 1, both dtypes: timed, with the device time split
+    over launches and the host time of a call, beside F.max_pool2d's) and,
+    with NaN and -inf placed, at odd sizes, widths that are not a multiple
+    of 16 or of 8 (the kernel's cells span 16 input columns), unaligned
+    views and a batch slice of an odd-sized plane."""
     import torch
     import torch.nn.functional as F
 
     from perseus_tpu_torch.models import pool
 
     gen = torch.Generator().manual_seed(0)
+    f32, bf16 = torch.float32, torch.bfloat16
     cases = [
-        ("stem B=256 bf16", (256, 64, 128, 128), torch.bfloat16, False),
-        ("stem B=256 f32", (256, 64, 128, 128), torch.float32, False),
-        ("stem B=1 bf16 (serving)", (1, 64, 128, 128), torch.bfloat16, False),
-        ("stem B=1 f32", (1, 64, 128, 128), torch.float32, False),
-        ("odd 2x8x31x17 f32", (2, 8, 31, 17), torch.float32, True),
-        ("odd 2x8x31x17 bf16", (2, 8, 31, 17), torch.bfloat16, True),
-        ("tiny 1x3x1x1 f32", (1, 3, 1, 1), torch.float32, True),
+        ("stem B=256 bf16", (256, 64, 128, 128), bf16, "timed"),
+        ("stem B=256 f32", (256, 64, 128, 128), f32, "timed"),
+        ("stem B=1 bf16 (serving)", (1, 64, 128, 128), bf16, "timed"),
+        ("stem B=1 f32", (1, 64, 128, 128), f32, "timed"),
+        ("tiny 1x3x1x1 f32", (1, 3, 1, 1), f32, "special"),
     ]
+    for dtype in (f32, bf16):
+        dt = str(dtype).removeprefix("torch.")
+        cases += [
+            (f"odd 2x8x31x17 {dt}", (2, 8, 31, 17), dtype, "special"),
+            (f"W % 16 != 0 2x4x30x40 {dt}", (2, 4, 30, 40), dtype, "special"),
+            (f"W % 8 != 0 2x4x29x36 {dt}", (2, 4, 29, 36), dtype, "special"),
+            (f"W % 16 != 0 1x2x33x130 {dt}", (1, 2, 33, 130), dtype, "special"),
+            (f"unaligned view 2x8x32x64 {dt}", (2, 8, 32, 64), dtype, "unaligned"),
+            (f"unaligned view 2x8x31x17 {dt}", (2, 8, 31, 17), dtype, "unaligned"),
+            (f"batch slice [1:] of 3x3x31x17 {dt}", (3, 3, 31, 17), dtype, "slice"),
+        ]
     timings = {}
     max_err = 0.0
-    for name, shape, dtype, special in cases:
+    for name, shape, dtype, kind in cases:
         # ReLU'd normal input, like the stem's: many exact-zero ties
         x = torch.relu(torch.randn(shape, generator=gen)).to("cuda", dtype)
-        if special:
+        if kind != "timed":
             x.view(-1)[::7] = float("nan")
             x.view(-1)[3::5] = float("-inf")
+        if kind == "unaligned":
+            x = unaligned(x)
+        elif kind == "slice":
+            x = x[1:]
+        if kind in ("unaligned", "slice") and x.data_ptr() % 16 == 0:
+            raise AssertionError(f"maxpool case {name}: the view is 16-byte aligned")
         out = pool.max_pool_3x3_s2(x)
         torch.cuda.synchronize()
         ref = pool.max_pool_3x3_s2_reference(x)
@@ -212,19 +282,69 @@ def phase_pool_kernel(main_shape, main_dtype):
         finite = ~ref.isnan()
         err = (out[finite].float() - ref[finite].float()).abs().max().item() if finite.any() else 0.0
         max_err = max(max_err, err)
-        if not special:
-            t_kernel = time_ms(lambda: pool.max_pool_3x3_s2(x))
-            t_plain = time_ms(lambda: pool.max_pool_3x3_s2_reference(x))
-            t_lib = time_ms(lambda: F.max_pool2d(x, 3, 2, 1))
-            bound, by = pool_bound_ms(shape, dtype)
-            timings[(shape, dtype)] = (t_kernel, t_plain, t_lib, bound, by)
-            log(
-                f"maxpool {name}: exact; kernel {t_kernel:.6f} ms, plain {t_plain:.6f} ms, "
-                f"F.max_pool2d {t_lib:.6f} ms, bound {bound:.6f} ms ({by})"
-            )
-        else:
+        if kind != "timed":
             log(f"maxpool {name} (NaN/-inf): exact")
+            continue
+        # the kernel and the library call in turns: at batch 1 both are
+        # bound by the host, whose speed drifts
+        turns = time_turns({"kernel": lambda: pool.max_pool_3x3_s2(x), "lib": lambda: F.max_pool2d(x, 3, 2, 1)})
+        t_kernel, t_lib = turns["kernel"], turns["lib"]
+        t_plain = time_ms(lambda: pool.max_pool_3x3_s2_reference(x))
+        log_split(f"maxpool {name} kernel", lambda: pool.max_pool_3x3_s2(x), calls=50, host=True)
+        log_split(f"maxpool {name} F.max_pool2d", lambda: F.max_pool2d(x, 3, 2, 1), calls=50, host=True)
+        if shape[0] == 1:
+            log_pool_host_path(f"maxpool {name}", x)
+        bound, by = pool_bound_ms(shape, dtype)
+        timings[(shape, dtype)] = (t_kernel, t_plain, t_lib, bound, by)
+        log(
+            f"maxpool {name}: exact; kernel {t_kernel:.6f} ms, plain {t_plain:.6f} ms, "
+            f"F.max_pool2d {t_lib:.6f} ms, bound {bound:.6f} ms ({by}) (CUDA events per call of 50 back to "
+            f"back; kernel and F.max_pool2d: the median of 7 such runs in turns)"
+        )
     return timings[(main_shape, main_dtype)], max_err
+
+
+def log_pool_host_path(label: str, x) -> None:
+    """Where the host time of one forward call goes: the wrapper whole, and
+    each step of its path alone (the checks, the output's allocation, the
+    device and stream lookup, the binding's call with nothing to launch,
+    the call and the launch), beside F.max_pool2d; host clock, the median of
+    5 rounds of 200 calls taken in turns. A diagnostic: a tree whose
+    wrapper has other steps is reported, not failed."""
+    import statistics
+
+    import torch
+    import torch.nn.functional as F
+
+    from perseus_tpu_torch.models import _build, pool
+
+    b, c, h, w = x.shape
+    ho, wo = pool.pool_output_hw(h, w)
+    y = pool.max_pool_3x3_s2(x)
+    try:
+        fwd = _build.load_module("maxpool").fwd
+    except (AttributeError, ImportError) as exc:
+        log(f"{label} host path: not measured ({exc!r})")
+        return
+    bf16, dev = x.dtype is torch.bfloat16, x.get_device()
+    stream = pool._raw_stream(dev)
+    xp, yp = x.data_ptr(), y.data_ptr()
+    steps = {
+        "whole wrapper": lambda: pool.max_pool_3x3_s2(x),
+        "F.max_pool2d": lambda: F.max_pool2d(x, 3, 2, 1),
+        "checks": lambda: (x.requires_grad and torch.is_grad_enabled(), x.is_cuda, x.dtype in pool._DTYPES,
+                           x.dim(), x.is_contiguous()),
+        "allocation (new_empty)": lambda: x.new_empty(b, c, ho, wo),
+        "device and stream": lambda: pool._raw_stream(x.get_device()),
+        "binding call, no launch": lambda: fwd(bf16, xp, yp, 0, h, w, dev, stream),
+        "binding call + launch": lambda: fwd(bf16, xp, yp, b * c, h, w, dev, stream),
+    }
+    runs = {k: [] for k in steps}
+    for _ in range(5):
+        for k, step in steps.items():
+            runs[k].append(host_us(step))
+    log(f"{label} host path (us per call, host clock, median of 5 x 200 calls in turns): "
+        + ", ".join(f"{k} {statistics.median(v):.3f}" for k, v in runs.items()))
 
 
 def bytes_bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -365,6 +485,23 @@ AFFINE_SWEEP = (
 )
 
 
+def _sweep_affines(s):
+    """Two-pass parameters of AFFINE_SWEEP at size S on the card: (swap
+    (8,), params (8, 6)); some images are swapped and some are not."""
+    import torch
+
+    from perseus_tpu_torch.augment import ops
+
+    b = len(AFFINE_SWEEP)
+    col = torch.tensor(AFFINE_SWEEP, device="cuda").T
+    aff = {"angle": col[0], "scale": col[1], "shear_x": col[2], "shear_y": col[3], "tx": col[4] * s,
+           "ty": col[5] * s, "applied": torch.ones(b, dtype=torch.bool, device="cuda")}
+    swap, parts = ops._two_pass_params(ops._invert_affine(ops.affine_matrices(aff, s, s)))
+    if not (swap.any() and not swap.all()):
+        raise AssertionError(f"affine sweep at {s}: swap {swap.tolist()}")
+    return swap, torch.stack(parts, dim=-1)
+
+
 def _sweep_inputs(gen, s, dtype):
     """(8, 5, S, S) inputs on the card, image k warped by AFFINE_SWEEP[k];
     image 0 and its donor (image 1) carry no cube, so image 0's transplant
@@ -379,16 +516,13 @@ def _sweep_inputs(gen, s, dtype):
     x[:, 3] = 3.0 + 11.0 * x[:, 3]
     x[:, 4] = (x[:, 4] < 0.4).float()
     x[:2, 4] = 0.0
-    col = torch.tensor(AFFINE_SWEEP, device="cuda").T
-    aff = {"angle": col[0], "scale": col[1], "shear_x": col[2], "shear_y": col[3], "tx": col[4] * s,
-           "ty": col[5] * s, "applied": torch.ones(b, dtype=torch.bool, device="cuda")}
-    swap, parts = ops._two_pass_params(ops._invert_affine(ops.affine_matrices(aff, s, s)))
+    swap, wp = _sweep_affines(s)
     donor = (torch.arange(b, device="cuda") + 1) % b
     accepted = (ops.transplant_with_depth(x, donor) != x).flatten(1).any(1)
     if not (swap.any() and not swap.all() and accepted.any() and not accepted.all()):
         raise AssertionError(f"affine sweep at {s}: swap {swap.tolist()}, transplant accepted {accepted.tolist()}")
     params = fused.sample_fused_params(gen, AugmentationConfig(), b, s, s, 5)
-    return x.to(dtype), params, donor, swap, torch.stack(parts, dim=-1)
+    return x.to(dtype), params, donor, swap, wp
 
 
 def phase_augment_kernels():
@@ -477,50 +611,77 @@ def _grid_sample_warp(x, mats):
     return lambda: F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
 
 
+def warp_bound_ms(x) -> tuple[float, str]:
+    """Least time of the two-pass warp of ``x`` (B, C, S, S) f32: the image
+    read once, the output written once (the (B, 7) params are noise); per
+    output pixel ~22 f32 operations for the taps and 7 per channel for the
+    blend."""
+    b, c, s, _ = x.shape
+    return bytes_bound_ms(2 * x.numel() * 4 + b * 7 * 4, b * s * s * (22 + 7 * c))
+
+
 def phase_warp_kernel():
-    """The two-pass warp kernel (#3) against its plain version on the card:
-    the unfused train path's shape (256, 5, 256, 256) f32 with affines to
-    +-90 deg (some images swapped), exact at the identity, and odd sizes."""
+    """The two-pass warp kernel (#3) against its plain version on the card,
+    within 1e-5 and exact at the identity, every image in both orientations
+    (the drawn swap flags, then the flipped ones: the flag is an input of
+    the function both sides compute): the unfused train path's shape
+    (256, 5, 256, 256) f32 with affines to +-90 deg (timed, also its
+    swapped and unswapped images as batches of their own), odd sizes, and
+    AFFINE_SWEEP (the config's extremes, the identity, a zoom-out past the
+    kernel's shared-memory box) at sizes 37, 129 and 256 with 5 and 4
+    channels."""
     import torch
 
     from perseus_tpu_torch.augment import warp
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     result = None
-    for b, c, s, timed in [(256, 5, 256, True), (3, 5, 37, False), (2, 4, 129, False)]:
+    cases = [(256, 5, 256, "timed"), (3, 5, 37, "random"), (2, 4, 129, "random")]
+    cases += [(len(AFFINE_SWEEP), c, s, "affine sweep") for s in (37, 129, 256) for c in (5, 4)]
+    for b, c, s, case in cases:
         x = torch.rand((b, c, s, s), device="cuda", generator=gen)
         x[:, 3:4] = 3.0 + 11.0 * x[:, 3:4]
-        swap, wp, mats = _warp_params(gen, b, s)
-        # both orientations in every case (the flag is an input of the
-        # function both sides compute, so setting it keeps the comparison)
-        swap[0], swap[-1] = False, True
-        out = warp.warp_affine_two_pass(x, swap, wp)
-        torch.cuda.synchronize()
-        ref = warp.warp_affine_two_pass_reference(x, swap, wp)
-        err = (out - ref).abs().max().item()
-        if out.dtype != torch.float32 or out.shape != x.shape or not err <= 1e-5:
-            raise AssertionError(f"warp kernel disagrees with its plain version at {(b, c, s, s)}: {err}")
+        if case == "affine sweep":
+            swap, wp = _sweep_affines(s)
+        else:
+            swap, wp, mats = _warp_params(gen, b, s)
+            swap[0], swap[-1] = False, True
+        err = 0.0
+        for flags in (swap, ~swap):
+            out = warp.warp_affine_two_pass(x, flags, wp)
+            torch.cuda.synchronize()
+            ref = warp.warp_affine_two_pass_reference(x, flags, wp)
+            err = max(err, (out - ref).abs().max().item())
+            if out.dtype != torch.float32 or out.shape != x.shape or not err <= 1e-5:
+                raise AssertionError(f"warp kernel disagrees with its plain version at {(b, c, s, s)} ({case}): {err}")
         # the identity: no swap, exact on both
         eye_swap, eye_wp, _ = _warp_params(gen, b, s, identity=True)
         eye = warp.warp_affine_two_pass(x, eye_swap, eye_wp)
         if eye_swap.any() or not (torch.equal(eye, x) and torch.equal(warp.warp_affine_two_pass_reference(x, eye_swap, eye_wp), x)):
             raise AssertionError(f"warp kernel or its plain version is not exact at the identity at {(b, c, s, s)}")
-        label = f"warp {(b, c, s, s)} f32 ({int(swap.sum())} of {b} swapped)"
-        if not timed:
+        label = f"warp {(b, c, s, s)} f32 ({case}, {int(swap.sum())} of {b} swapped, then flipped)"
+        if case != "timed":
             log(f"{label}: max abs err {err:.3e} (within 1e-5); exact at the identity")
             continue
         t_kernel = time_ms(lambda: warp.warp_affine_two_pass(x, swap, wp), iters=20, warmup=3)
         t_plain = time_ms(lambda: warp.warp_affine_two_pass_reference(x, swap, wp), iters=3, warmup=1)
         t_grid = time_ms(_grid_sample_warp(x, mats), iters=20, warmup=3)
-        # each input read once, the output written once; per output pixel
-        # ~22 f32 operations for the taps and 7 per channel for the blend
-        bound, by = bytes_bound_ms(2 * x.numel() * 4 + wp.numel() * 4 + b * 4, b * s * s * (22 + 7 * c))
+        log_split(f"warp {(b, c, s, s)}", lambda: warp.warp_affine_two_pass(x, swap, wp))
+        bound, by = warp_bound_ms(x)
         result = (t_kernel, t_plain, bound, by, err)
         log(
             f"{label}: max abs err {err:.3e}; exact at the identity; kernel {t_kernel:.6f} ms, plain "
             f"{t_plain:.6f} ms, bound {bound:.6f} ms ({by}); F.grid_sample on the same affines (a direct "
             f"2-D bilinear warp, not this function: a yardstick) {t_grid:.6f} ms"
         )
+        # the batch's swapped and unswapped images, each as a batch of its own
+        for flag, orient in ((True, "swapped"), (False, "unswapped")):
+            sel = swap == flag
+            xs, ss, ws = x[sel].contiguous(), swap[sel], wp[sel]
+            t_part = time_ms(lambda: warp.warp_affine_two_pass(xs, ss, ws), iters=20, warmup=3)
+            part_bound, _ = warp_bound_ms(xs)
+            log(f"warp {orient} images alone {tuple(xs.shape)}: kernel {t_part:.6f} ms, bound {part_bound:.6f} ms "
+                f"({part_bound / t_part:.3f} of it)")
         del x, out, ref, eye
         torch.cuda.empty_cache()
     return result

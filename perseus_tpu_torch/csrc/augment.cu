@@ -16,13 +16,25 @@
 //   perseus_warp_affine_f32  replaces perseus_tpu/augment/warp_pallas.py::
 //                  _warp_kernel (augment/warp.py::warp_affine_two_pass): the
 //                  two-pass warp alone, f32 in and out, any square size, the
-//                  swap transpose read in place. One thread per output pixel
-//                  computes its taps once (warp_taps, shared with stage 1)
-//                  and walks the channels. Bound: bytes (the image read
-//                  once, the output written once, 40 B/px at C = 5); the 4
-//                  taps per channel re-read neighbouring source pixels
-//                  through L1/L2, and a swapped image is read down its
-//                  columns.
+//                  swap transpose read in place. Hopper redesign, the design
+//                  of the ultra stage 1 below (and its box code): a block
+//                  bounds its 32x32 output tile's taps, stages that source
+//                  box once in shared memory (a swapped image read along its
+//                  stored rows and written transposed), and reads its taps
+//                  there; a tap outside the box reads global memory the same
+//                  way; the box is bounded from the taps of the tile's two
+//                  edge columns, which give the same box as every pixel's.
+//                  C = 5 at compile time, any other C in passes of up to 5
+//                  channels; 32-bit offsets. Bound: bytes (the image read
+//                  once, the output written once, 40 B/px at C = 5: 0.2003
+//                  ms at (256, 5, 256, 256)). Measured (chip_smoke.py,
+//                  NVIDIA H100 80GB HBM3, 700.00 W): 0.33 ms there, swapped
+//                  and unswapped images alike.
+//                  (The first version ran one thread per output pixel with
+//                  64-bit pixel indexing and read its 4 taps per channel from
+//                  global memory, a swapped image down its columns, one
+//                  32-byte sector per 4-byte load: 0.51 ms at (256, 5, 256,
+//                  256), NVIDIA H100 80GB HBM3, 700.00 W.)
 //
 // Design. The TPU kernel holds a whole image in VMEM. A 256x256x5 f32 image
 // is 1.25 MiB, far above one SM's 227 KB of shared memory, and the chain
@@ -118,6 +130,11 @@ constexpr int kUltraC = 5;
 // so four blocks fit an SM's 228 KB
 constexpr int kBoxPix = 2800;
 constexpr int kBoxMaxCols = 127;
+// the standalone warp's: channels staged per pass (the unfused chain's C),
+// and its f32 box budget, pixels per channel: 5 x 2800 x 4 B is 56,000 B,
+// four blocks per SM
+constexpr int kWarpC = 5;
+constexpr int kWarpBoxPix = 2800;
 
 __device__ __forceinline__ float ld(float v) { return v; }
 __device__ __forceinline__ float ld(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -408,6 +425,121 @@ __global__ void __launch_bounds__(kThreads) stage1(Args<T> a) {
   finish_gray(a, bi, gray_sum);
 }
 
+// A tile's source box (the stage-1 ultra kernel and the standalone warp):
+// the rows i0 .. i0 + nrows - 1 and columns j0 .. j0 + ncols - 1 of the
+// warp's input, channel k's value (li, lj) at [(k nrows + li) pitch + lj];
+// an odd row pitch, so a swapped image's transposed writes do not conflict.
+struct Box {
+  int i0, j0, nrows, ncols, pitch;
+};
+
+// The rows and columns the taps of the block's output tile reach (clamped,
+// as read), reduced over the block through s_lim (i min, i max, j min, j
+// max), and from them the box, cut to `budget` pixels per channel when it
+// exceeds it (the taps outside it read global memory). A box from the
+// tile's corners would miss border tiles: the row map is evaluated at the
+// clamped column. kEdgeColumns = false bounds every pixel's taps (each
+// thread its column's pixels). kEdgeColumns = true bounds only the taps of
+// the tile's first and last column in the image (lanes of warps 0 and 1,
+// one row each), which gives the same box: along a row the column map gam
+// is monotone in x, and for a fixed row the row map rhoT is monotone in the
+// column j, each rounding step included (a rounded product or sum is
+// monotone in its operands), as are floor and the clamps
+// (tests/test_torch_augment_cuda.py holds the two boxes equal).
+template <bool kEdgeColumns>
+__device__ __forceinline__ Box tile_box(float i00, float i01, float t0, float p, float q, float r, int h, int w,
+                                        int tid, int budget, int* s_lim) {
+  if (tid == 0) {
+    s_lim[0] = s_lim[2] = INT_MAX;
+    s_lim[1] = s_lim[3] = INT_MIN;
+  }
+  __syncthreads();
+  int lim[4] = {INT_MAX, INT_MIN, INT_MAX, INT_MIN};
+  const auto bound = [&](int y, int x) {
+    const Taps tp = warp_taps(i00, i01, t0, p, q, r, (float)y, (float)x, h, w);
+    lim[0] = min(lim[0], min(min(tp.i[0][0], tp.i[0][1]), min(tp.i[1][0], tp.i[1][1])));
+    lim[1] = max(lim[1], max(max(tp.i[0][0], tp.i[0][1]), max(tp.i[1][0], tp.i[1][1])));
+    lim[2] = min(lim[2], min(tp.j[0], tp.j[1]));
+    lim[3] = max(lim[3], max(tp.j[0], tp.j[1]));
+  };
+  if (kEdgeColumns) {
+    const int y = blockIdx.y * kTile + (tid & 31);
+    if (tid < 64 && y < h) bound(y, tid < 32 ? blockIdx.x * kTile : min((int)(blockIdx.x + 1) * kTile, w) - 1);
+  } else {
+    const int x = blockIdx.x * kTile + threadIdx.x, y_end = min(h, (int)(blockIdx.y + 1) * kTile);
+    for (int y = blockIdx.y * kTile + threadIdx.y; y < y_end && x < w; y += kTileRows) bound(y, x);
+  }
+  lim[0] = __reduce_min_sync(0xffffffffu, lim[0]);
+  lim[1] = __reduce_max_sync(0xffffffffu, lim[1]);
+  lim[2] = __reduce_min_sync(0xffffffffu, lim[2]);
+  lim[3] = __reduce_max_sync(0xffffffffu, lim[3]);
+  if ((tid & 31) == 0 && lim[0] <= lim[1]) {
+    atomicMin(&s_lim[0], lim[0]);
+    atomicMax(&s_lim[1], lim[1]);
+    atomicMin(&s_lim[2], lim[2]);
+    atomicMax(&s_lim[3], lim[3]);
+  }
+  __syncthreads();
+  Box bx;
+  bx.i0 = s_lim[0];
+  bx.j0 = s_lim[2];
+  bx.ncols = min(s_lim[3] - bx.j0 + 1, kBoxMaxCols);
+  bx.pitch = bx.ncols | 1;
+  bx.nrows = min(s_lim[1] - bx.i0 + 1, budget / bx.pitch);
+  return bx;
+}
+
+// Stages the box: `src(i, j, v)` gives the first nc (<= NC) channels of the
+// warp's input at row i, column j. Stored rows go by warp and stored columns
+// by lane, so the reads are coalesced in either orientation: a swapped
+// image's stored row is a column of the warp's input.
+template <int NC, typename T, typename Src>
+__device__ __forceinline__ void stage_box(T* box, const Box& bx, bool swap, int tid, int nc, Src src) {
+  if (bx.nrows <= 0) return;
+  const int n_sr = swap ? bx.ncols : bx.nrows, n_sc = swap ? bx.nrows : bx.ncols;
+  for (int sr = tid >> 5; sr < n_sr; sr += kThreads / 32) {
+    for (int sc = tid & 31; sc < n_sc; sc += 32) {
+      // stored (sr, sc) of the box is the warp input's (li, lj), or (lj, li) when swapped
+      const int li = swap ? sc : sr, lj = swap ? sr : sc;
+      float v[NC];
+      src(bx.i0 + li, bx.j0 + lj, v);
+#pragma unroll
+      for (int k = 0; k < NC; ++k)
+        if (k < nc) box[(k * bx.nrows + li) * bx.pitch + lj] = st<T>(v[k]);
+    }
+  }
+}
+
+// The two-pass blend of output pixel taps tp over nc (<= NC) channels, in
+// _warp_planes' order: for each tap column t, inter = s(i[t][0]) vwt[t][0] +
+// s(i[t][1]) vwt[t][1], then v = inter[0] hwt[0] + inter[1] hwt[1]. A tap
+// reads the staged box where it falls in it, else global memory through
+// `src`, the function that staged the box: the values are the same bits
+// whatever the box's size.
+template <int NC, typename T, typename Src>
+__device__ __forceinline__ void blend_taps(const Taps& tp, const T* box, const Box& bx, int nc, Src src, float* v) {
+  float inter[2][NC];
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    float s[2][NC] = {};
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int li = tp.i[t][u] - bx.i0, lj = tp.j[t] - bx.j0;
+      if ((unsigned)li < (unsigned)bx.nrows && (unsigned)lj < (unsigned)bx.ncols) {
+#pragma unroll
+        for (int k = 0; k < NC; ++k)
+          if (k < nc) s[u][k] = ld(box[(k * bx.nrows + li) * bx.pitch + lj]);
+      } else {
+        src(tp.i[t][u], tp.j[t], s[u]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NC; ++k) inter[t][k] = s[0][k] * tp.vwt[t][0] + s[1][k] * tp.vwt[t][1];
+  }
+#pragma unroll
+  for (int k = 0; k < NC; ++k) v[k] = inter[0][k] * tp.hwt[0] + inter[1][k] * tp.hwt[1];
+}
+
 // All 5 channels of the ultra source at row i, column j of the warp's
 // input: the (transplanted if accepted) image, transposed when swap is set.
 // The staged box and the taps outside it both come from here.
@@ -435,7 +567,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads, 4) stage1_ultra(Args<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* box = reinterpret_cast<T*>(smem_raw);  // [kUltraC][rows][pitch]
-  __shared__ int s_lim[4];                  // i min, i max, j min, j max of the tile's taps
+  __shared__ int s_lim[4];
   const int bi = blockIdx.z;
   const int h = a.h, w = a.w;
   const Image<T> im = image_of(a, bi);
@@ -448,80 +580,20 @@ __global__ void __launch_bounds__(kThreads, 4) stage1_ultra(Args<T> a) {
   const bool accept = accepted(a.counts, bi, h * w, a.lb, a.ub);
   const int tid = threadIdx.y * kTile + threadIdx.x;
   const int x = blockIdx.x * kTile + threadIdx.x;
-  const int y_end = min(h, (int)(blockIdx.y + 1) * kTile);
+  const int y_begin = blockIdx.y * kTile + threadIdx.y, y_end = min(h, (int)(blockIdx.y + 1) * kTile);
+  const auto source = [&](int i, int j, float* v) { ultra_source(img, don, hw, w, i, j, swap, accept, v); };
 
-  // 1. the rows and columns the tile's taps reach (clamped, as read)
-  if (tid == 0) {
-    s_lim[0] = s_lim[2] = INT_MAX;
-    s_lim[1] = s_lim[3] = INT_MIN;
-  }
-  __syncthreads();
-  int lim[4] = {INT_MAX, INT_MIN, INT_MAX, INT_MIN};
-  for (int y = blockIdx.y * kTile + threadIdx.y; y < y_end && x < w; y += kTileRows) {
-    const Taps tp = warp_taps(i00, i01, t0, p, q, r, (float)y, (float)x, h, w);
-    lim[0] = min(lim[0], min(min(tp.i[0][0], tp.i[0][1]), min(tp.i[1][0], tp.i[1][1])));
-    lim[1] = max(lim[1], max(max(tp.i[0][0], tp.i[0][1]), max(tp.i[1][0], tp.i[1][1])));
-    lim[2] = min(lim[2], min(tp.j[0], tp.j[1]));
-    lim[3] = max(lim[3], max(tp.j[0], tp.j[1]));
-  }
-  lim[0] = __reduce_min_sync(0xffffffffu, lim[0]);
-  lim[1] = __reduce_max_sync(0xffffffffu, lim[1]);
-  lim[2] = __reduce_min_sync(0xffffffffu, lim[2]);
-  lim[3] = __reduce_max_sync(0xffffffffu, lim[3]);
-  if ((tid & 31) == 0 && lim[0] <= lim[1]) {
-    atomicMin(&s_lim[0], lim[0]);
-    atomicMax(&s_lim[1], lim[1]);
-    atomicMin(&s_lim[2], lim[2]);
-    atomicMax(&s_lim[3], lim[3]);
-  }
-  __syncthreads();
-  // the box, cut to the budget when it exceeds it (the rest reads global)
-  const int i0 = s_lim[0], j0 = s_lim[2];
-  const int ncols = min(s_lim[3] - j0 + 1, kBoxMaxCols);
-  const int pitch = ncols | 1;
-  const int nrows = min(s_lim[1] - i0 + 1, kBoxPix / pitch);
-
-  // 2. stage the box: stored rows by warp, stored columns by lane
-  if (nrows > 0) {
-    const int sr0 = swap ? j0 : i0, sc0 = swap ? i0 : j0;
-    const int n_sr = swap ? ncols : nrows, n_sc = swap ? nrows : ncols;
-    for (int sr = tid >> 5; sr < n_sr; sr += kThreads / 32) {
-      for (int sc = tid & 31; sc < n_sc; sc += 32) {
-        // stored (sr0 + sr, sc0 + sc) is the warp input's (i, j) = (row, col), or (col, row) when swapped
-        const int li = swap ? sc : sr, lj = swap ? sr : sc;
-        float v[kUltraC];
-        ultra_source(img, don, hw, w, i0 + li, j0 + lj, swap, accept, v);
-#pragma unroll
-        for (int k = 0; k < kUltraC; ++k) box[(k * nrows + li) * pitch + lj] = st<T>(v[k]);
-      }
-    }
-  }
+  // 1. the box of the tile's taps; 2. staged once
+  const Box bx = tile_box<false>(i00, i01, t0, p, q, r, h, w, tid, kBoxPix, s_lim);
+  stage_box<kUltraC>(box, bx, swap, tid, kUltraC, source);
   __syncthreads();
 
   // 3. the taps, from the box where they fall in it
   float gray_sum = 0.0f;
-  for (int y = blockIdx.y * kTile + threadIdx.y; y < y_end && x < w; y += kTileRows) {
+  for (int y = y_begin; y < y_end && x < w; y += kTileRows) {
     const Taps tp = warp_taps(i00, i01, t0, p, q, r, (float)y, (float)x, h, w);
-    float inter[2][kUltraC];
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      float s[2][kUltraC];
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int li = tp.i[t][u] - i0, lj = tp.j[t] - j0;
-        if ((unsigned)li < (unsigned)nrows && (unsigned)lj < (unsigned)ncols) {
-#pragma unroll
-          for (int k = 0; k < kUltraC; ++k) s[u][k] = ld(box[(k * nrows + li) * pitch + lj]);
-        } else {
-          ultra_source(img, don, hw, w, tp.i[t][u], tp.j[t], swap, accept, s[u]);
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kUltraC; ++k) inter[t][k] = s[0][k] * tp.vwt[t][0] + s[1][k] * tp.vwt[t][1];
-    }
     float v[kUltraC];
-#pragma unroll
-    for (int k = 0; k < kUltraC; ++k) v[k] = inter[0][k] * tp.hwt[0] + inter[1][k] * tp.hwt[1];
+    blend_taps<kUltraC>(tp, box, bx, kUltraC, source, v);
     gray_sum += stage1_tail(im, kUltraC, y, x, y * w + x, v);
   }
   finish_gray(a, bi, gray_sum);
@@ -677,28 +749,51 @@ int run(int mode, const void* img, void* out, const void* sv, const void* fields
   return (int)cudaGetLastError();
 }
 
-// The standalone two-pass warp: one thread per output pixel of image
-// blockIdx.y; wp is (B, 7), (i00, i01, t0, p, q, r, swap).
-__global__ void warp_two_pass(const float* __restrict__ img, float* __restrict__ out,
-                              const float* __restrict__ wp, int c, int h, int w) {
-  const int bi = blockIdx.y;
-  const int64_t hw = (int64_t)h * w;
-  const int64_t px = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (px >= hw) return;
+// The standalone two-pass warp on a 32x32 output tile of image blockIdx.z,
+// the design of stage1_ultra: the tile's source box staged once in shared
+// memory (f32), the taps read from it. wp is (B, 7), (i00, i01, t0, p, q,
+// r, swap). C = kWarpC channels at compile time, in one pass with the
+// per-pixel values in registers; C = 0: any c, in passes of up to kWarpC
+// channels. Offsets inside an image are 32-bit (the launch checks c h w <
+// 2^31).
+template <int C>
+__global__ void __launch_bounds__(kThreads, 4)
+warp_two_pass(const float* __restrict__ img, float* __restrict__ out, const float* __restrict__ wp, int c,
+              int h, int w) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* box = reinterpret_cast<float*>(smem_raw);  // [kWarpC][rows][pitch]
+  __shared__ int s_lim[4];
+  const int cc = C > 0 ? C : c;
+  const int bi = blockIdx.z, hw = h * w;
   const float* prm = wp + (int64_t)bi * 7;
+  const float i00 = prm[0], i01 = prm[1], t0 = prm[2], p = prm[3], q = prm[4], r = prm[5];
   const bool swap = prm[6] > 0.5f;
-  const int y = (int)(px / w), x = (int)(px % w);
-  const Taps tp = warp_taps(prm[0], prm[1], prm[2], prm[3], prm[4], prm[5], (float)y, (float)x, h, w);
-  int64_t off[2][2];
-  for (int t = 0; t < 2; ++t)
-    for (int u = 0; u < 2; ++u) off[t][u] = src_offset(tp.i[t][u], tp.j[t], swap, w);
-  const float* src = img + (int64_t)bi * c * hw;
-  float* dst = out + (int64_t)bi * c * hw;
-  for (int k = 0; k < c; ++k) {
-    const float* plane = src + k * hw;
-    const float in0 = plane[off[0][0]] * tp.vwt[0][0] + plane[off[0][1]] * tp.vwt[0][1];
-    const float in1 = plane[off[1][0]] * tp.vwt[1][0] + plane[off[1][1]] * tp.vwt[1][1];
-    dst[k * hw + px] = in0 * tp.hwt[0] + in1 * tp.hwt[1];
+  const int tid = threadIdx.y * kTile + threadIdx.x;
+  const int x = blockIdx.x * kTile + threadIdx.x;
+  const int y_begin = blockIdx.y * kTile + threadIdx.y, y_end = min(h, (int)(blockIdx.y + 1) * kTile);
+  const Box bx = tile_box<true>(i00, i01, t0, p, q, r, h, w, tid, kWarpBoxPix, s_lim);
+  for (int k0 = 0; k0 < cc; k0 += kWarpC) {
+    const int nc = C > 0 ? C : min(kWarpC, cc - k0);
+    const float* src = img + ((int64_t)bi * cc + k0) * hw;
+    float* dst = out + ((int64_t)bi * cc + k0) * hw;
+    // the warp input's (i, j): the stored image's, or its (j, i) when swapped
+    const auto source = [&](int i, int j, float* v) {
+      const int o = swap ? j * w + i : i * w + j;
+#pragma unroll
+      for (int k = 0; k < kWarpC; ++k)
+        if (k < nc) v[k] = src[k * hw + o];
+    };
+    if (k0 > 0) __syncthreads();  // every tap of the last pass has been read
+    stage_box<kWarpC>(box, bx, swap, tid, nc, source);
+    __syncthreads();
+    for (int y = y_begin; y < y_end && x < w; y += kTileRows) {
+      const Taps tp = warp_taps(i00, i01, t0, p, q, r, (float)y, (float)x, h, w);
+      float v[kWarpC];
+      blend_taps<kWarpC>(tp, box, bx, nc, source, v);
+#pragma unroll
+      for (int k = 0; k < kWarpC; ++k)
+        if (k < nc) dst[k * hw + y * w + x] = v[k];
+    }
   }
 }
 
@@ -707,10 +802,14 @@ __global__ void warp_two_pass(const float* __restrict__ img, float* __restrict__
 extern "C" int perseus_warp_affine_f32(const void* img, void* out, const void* wp, int b, int c,
                                        int h, int w, void* stream) {
   if (b == 0 || c == 0 || h == 0 || w == 0) return 0;
-  if (h != w || b > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)(((int64_t)h * w + kThreads - 1) / kThreads), b);
-  warp_two_pass<<<grid, kThreads, 0, (cudaStream_t)stream>>>((const float*)img, (float*)out,
-                                                             (const float*)wp, c, h, w);
+  if (h != w || b > 65535 || (int64_t)c * h * w >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile, b), block(kTile, kTileRows);
+  const int box_bytes = kWarpC * kWarpBoxPix * (int)sizeof(float);
+  const auto kernel = c == kWarpC ? warp_two_pass<kWarpC> : warp_two_pass<0>;
+  const int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, box_bytes);
+  if (err) return err;
+  kernel<<<grid, block, box_bytes, (cudaStream_t)stream>>>((const float*)img, (float*)out, (const float*)wp,
+                                                             c, h, w);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,11 @@
 """Builds the port's CUDA sources into shared libraries and loads them.
 
-Each ``csrc/<name>.cu`` has a plain C interface; it is compiled with ``nvcc``
-for Hopper (``sm_90a``) into ``perseus_tpu_torch/_build/`` at first use and
-loaded with ``ctypes``. The library's file name carries a hash of the source
+Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for Hopper (``sm_90a``)
+into ``perseus_tpu_torch/_build/`` at first use, and bound either through a
+plain C interface loaded with ``ctypes`` (:func:`load_library`) or, where a
+wrapper's per-call host time matters, as a Python extension module
+(:func:`load_module`: ``csrc/maxpool.cu``, built against Python's headers).
+The library's file name carries a hash of the source
 and the flags, so an edited source never loads a stale build; the build
 writes to a temporary name and renames it, so concurrent builds do not see
 a half-written file. A failed build raises: there is no fallback.
@@ -17,13 +20,16 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.machinery
+import importlib.util
 import os
 import re
 import shutil
 import subprocess
+import sysconfig
 import tempfile
 
-__all__ = ["NVCC_FLAGS", "EXTRA_FLAGS", "build", "build_report", "library_path", "load_library"]
+__all__ = ["NVCC_FLAGS", "EXTRA_FLAGS", "build", "build_report", "library_path", "load_library", "load_module"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -34,14 +40,16 @@ NVCC_FLAGS = (
 )
 # Per-source additions. augment.cu rounds every product and sum on its own,
 # as its plain PyTorch version does (the index planes of its warp must not
-# be contracted into FMAs differently per use).
-EXTRA_FLAGS = {"augment": ("-fmad=false",)}
+# be contracted into FMAs differently per use). maxpool.cu is a Python
+# extension module and includes Python.h.
+EXTRA_FLAGS = {"augment": ("-fmad=false",), "maxpool": ("-I", sysconfig.get_paths()["include"])}
 
 
 def _flags(name: str) -> tuple[str, ...]:
     return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_modules: dict = {}
 
 
 def _cuda_tool(tool: str) -> str | None:
@@ -161,3 +169,16 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(build(name))
         _loaded[name] = lib
     return lib
+
+
+def load_module(name: str):
+    """Builds (if needed) and imports ``csrc/<name>.cu`` as the Python
+    extension module ``perseus_<name>`` (its ``PyInit_perseus_<name>``);
+    cached per process."""
+    mod = _modules.get(name)
+    if mod is None:
+        loader = importlib.machinery.ExtensionFileLoader(f"perseus_{name}", build(name))
+        mod = importlib.util.module_from_spec(importlib.util.spec_from_loader(loader.name, loader))
+        loader.exec_module(mod)
+        _modules[name] = mod
+    return mod

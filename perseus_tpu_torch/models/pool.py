@@ -10,17 +10,15 @@ the hand-written CUDA kernels in ``csrc/maxpool.cu``.
     :func:`max_pool_3x3_s2_reference` and
     :func:`max_pool_3x3_s2_backward_reference`, only for tensors on the CPU.
   * :func:`max_pool_3x3_s2` is also the differentiable op the model calls:
-    a ``torch.autograd.Function`` over the two, on both devices, so the
-    gradient has the JAX kernel's tie semantics everywhere: ``g[p, q]`` goes
+    for an input that needs a gradient, a ``torch.autograd.Function`` over
+    the two, on both devices, so the gradient has the JAX kernel's tie
+    semantics everywhere: ``g[p, q]`` goes
     whole to EVERY input equal to its window max (autograd through
     ``torch.maximum`` would split it in halves at a tie, and
     ``F.max_pool2d``'s backward gives it to one argmax).
 """
 
 from __future__ import annotations
-
-import ctypes
-import functools
 
 import torch
 import torch.nn.functional as F
@@ -35,7 +33,7 @@ __all__ = [
     "pool_output_hw",
 ]
 
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def pool_output_hw(h: int, w: int) -> tuple[int, int]:
@@ -90,16 +88,6 @@ def max_pool_3x3_s2_backward_reference(
     return dx.to(x.dtype)
 
 
-@functools.cache
-def _entry(name: str, dtype: torch.dtype, n_tensors: int):
-    fn = getattr(_build.load_library("maxpool"), f"perseus_{name}_{_SUFFIX[dtype]}")
-    fn.argtypes = [ctypes.c_void_p] * n_tensors + [
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _check(name: str, *tensors: torch.Tensor) -> None:
     x = tensors[0]
     if x.device.type != "cuda":
@@ -107,7 +95,7 @@ def _check(name: str, *tensors: torch.Tensor) -> None:
     for t in tensors:
         if t.device != x.device or t.dtype != x.dtype:
             raise TypeError(f"{name}: every tensor must share x's device and dtype")
-        if t.dtype not in _SUFFIX:
+        if t.dtype not in _DTYPES:
             raise TypeError(f"{name}: dtype {t.dtype} (kernel takes float32, bfloat16)")
         if t.dim() != 4:
             raise ValueError(f"{name}: expected (B, C, H, W), got shape {tuple(t.shape)}")
@@ -115,26 +103,43 @@ def _check(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: the kernel takes NCHW-contiguous tensors")
 
 
-def _launch(name: str, pointers: list, x: torch.Tensor, ho: int, wo: int) -> None:
-    b, c, h, w = x.shape
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _entry(name, x.dtype, len(pointers))(*pointers, b * c, h, w, ho, wo, stream)
+# the handle of a device's current stream, without building a
+# torch.cuda.Stream (what Triton's launcher reads); absent from CPU builds
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _kernels():
+    """The library of csrc/maxpool.cu as an extension module: ``fwd(bf16,
+    x, y, B C, H, W, device, stream)`` and ``bwd(bf16, x, y, g, dx, B C, H,
+    W, device, stream)`` launch on the device given (made current for the
+    launch when it is not) and return the launch's cudaError. Built and
+    imported at the first call."""
+    return _build.load_module("maxpool")
+
+
+def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, cudaError {err}")
 
 
 def _forward(x: torch.Tensor) -> torch.Tensor:
-    """The forward of :func:`max_pool_3x3_s2`."""
-    if x.device.type == "cpu":
-        return max_pool_3x3_s2_reference(x)
-    _check("max_pool_3x3_s2", x)
+    """The forward of :func:`max_pool_3x3_s2`, without autograd. The path
+    of a CUDA tensor is the serving frame's host time at batch 1, so it
+    makes no call it can do without."""
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return max_pool_3x3_s2_reference(x)
+        raise ValueError(f"max_pool_3x3_s2: unsupported device {x.device}")
+    if x.dtype not in _DTYPES or x.dim() != 4 or not x.is_contiguous():
+        _check("max_pool_3x3_s2", x)  # raises, naming what the kernel does not take
     b, c, h, w = x.shape
-    ho, wo = pool_output_hw(h, w)
-    y = torch.empty((b, c, ho, wo), dtype=x.dtype, device=x.device)
+    # pool_output_hw; the sizes as separate arguments parse faster than a tuple
+    y = x.new_empty(b, c, (h - 1) // 2 + 1, (w - 1) // 2 + 1)
     if y.numel() == 0:
         return y
-    _launch("maxpool3x3s2", [x.data_ptr(), y.data_ptr()], x, ho, wo)
+    dev = x.get_device()
+    err = _kernels().fwd(x.dtype is torch.bfloat16, x.data_ptr(), y.data_ptr(), b * c, h, w, dev, _raw_stream(dev))
+    _raise_on(err, "max_pool_3x3_s2")
     max_pool_3x3_s2.launches += 1
     return y
 
@@ -156,7 +161,11 @@ def max_pool_3x3_s2_backward(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor) 
     dx = torch.empty_like(x)
     if dx.numel() == 0:
         return dx
-    _launch("maxpool3x3s2_bwd", [x.data_ptr(), y.data_ptr(), g.data_ptr(), dx.data_ptr()], x, ho, wo)
+    b, c, h, w = x.shape
+    dev = x.get_device()
+    err = _kernels().bwd(x.dtype is torch.bfloat16, x.data_ptr(), y.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                         b * c, h, w, dev, _raw_stream(dev))
+    _raise_on(err, "max_pool_3x3_s2_backward")
     max_pool_3x3_s2_backward.launches += 1
     return dx
 
@@ -186,11 +195,13 @@ def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     A CPU tensor takes the plain version. A CUDA tensor launches the CUDA
     kernel on the current stream, or raises: for a dtype, rank or layout the
     kernel does not take, and for a failed build or launch. Each launch adds
-    one to ``max_pool_3x3_s2.launches``.
+    one to ``max_pool_3x3_s2.launches``. Only an input that needs a gradient
+    goes through the ``autograd.Function``; inference (serving) calls the
+    forward directly, which gives the same tensor with less host work.
     """
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"max_pool_3x3_s2: unsupported device {x.device}")
-    return _MaxPool3x3S2.apply(x)
+    if x.requires_grad and torch.is_grad_enabled():
+        return _MaxPool3x3S2.apply(x)
+    return _forward(x)
 
 
 max_pool_3x3_s2.launches = 0

@@ -101,15 +101,17 @@ def test_cuda_ultra_kernel_over_affine_sweep(storage):
         torch.testing.assert_close(out.float(), fused.fused_ultra_reference(*args).float(), **tol)
 
 
-def test_ultra_source_boxes_fit_the_kernel_budget():
-    """The ultra kernel stages each output tile's source box (the rows and
+@pytest.mark.parametrize("budget_name", ["kBoxPix", "kWarpBoxPix"])
+def test_ultra_source_boxes_fit_the_kernel_budget(budget_name):
+    """The ultra kernel (#6, budget kBoxPix) and the standalone two-pass
+    warp (#3, kWarpBoxPix) stage each output tile's source box (the rows and
     columns its taps reach, clamped as warp_taps clamps them) in shared
-    memory, kBoxPix pixels per channel with an odd row pitch; a tap outside
-    it reads global memory (right, but slower). Every tile of the default
-    config's affines at 256x256 must fit."""
+    memory, that many pixels per channel with an odd row pitch; a tap
+    outside it reads global memory (right, but slower). Every tile of the
+    default config's affines at 256x256 must fit each budget."""
     with open(os.path.join(os.path.dirname(fused.__file__), "..", "csrc", "augment.cu")) as f:
         src = f.read()
-    budget = int(re.search(r"constexpr int kBoxPix = (\d+);", src).group(1))
+    budget = int(re.search(rf"constexpr int {budget_name} = (\d+);", src).group(1))
     tile = int(re.search(r"constexpr int kTile = (\d+);", src).group(1))
     cfg, b, s = AugmentationConfig(), 64, 256
     aff = ops.sample_affine_params(torch.Generator().manual_seed(0), b, s, s, degrees=cfg.degrees,
@@ -134,6 +136,54 @@ def test_ultra_source_boxes_fit_the_kernel_budget():
     assert (nrows * pitch).max().item() <= budget
 
 
+def _tap_bounds(parts, s):
+    """Each output pixel's tap rows and columns, clamped as warp_taps clamps
+    them, with warp_taps' f32 arithmetic (no fused multiply-adds on the
+    CPU): (i min, i max, j min, j max), each (B, S, S)."""
+    i00, i01, t0, p, q, r = (t[:, None, None] for t in parts)
+    ys = torch.arange(s, dtype=torch.float32)[None, :, None]
+    xs = torch.arange(s, dtype=torch.float32)[None, None, :]
+    j0 = torch.floor(i01 * ys + i00 * xs + t0).long()
+    rows, cols = [], []
+    for t in (0, 1):
+        j = (j0 + t).clamp(0, s - 1)
+        i0 = torch.floor(q * ys + p * j.float() + r).long()
+        rows += [(i0 + u).clamp(0, s - 1) for u in (0, 1)]
+        cols.append(j)
+    rows, cols = torch.stack(rows), torch.stack(cols)
+    return rows.amin(0), rows.amax(0), cols.amin(0), cols.amax(0)
+
+
+def test_tile_box_from_edge_columns_is_the_box_of_every_tap():
+    """Both staging kernels (#3, #6) bound a 32x32 output tile's taps by
+    those of its first and last column in the image: along a row the column
+    map is monotone in x, and the row map monotone in the column, rounding
+    included. The box must be the one every pixel's taps give: on the
+    default config's affines at 256 and on AFFINE_SWEEP at sizes whose edge
+    tiles are ragged."""
+    with open(os.path.join(os.path.dirname(fused.__file__), "..", "csrc", "augment.cu")) as f:
+        tile = int(re.search(r"constexpr int kTile = (\d+);", f.read()).group(1))
+    cfg = AugmentationConfig()
+    aff = ops.sample_affine_params(torch.Generator().manual_seed(1), 32, 256, 256, degrees=cfg.degrees,
+                                   translate=cfg.translate, scale=cfg.scale, shear=cfg.shear)
+    aff["applied"][:] = True
+    cases = [(aff, 256)]
+    for s in (37, 129):
+        col = torch.tensor(AFFINE_SWEEP).T
+        cases.append(({"angle": col[0], "scale": col[1], "shear_x": col[2], "shear_y": col[3], "tx": col[4] * s,
+                       "ty": col[5] * s, "applied": torch.ones(len(AFFINE_SWEEP), dtype=torch.bool)}, s))
+    for aff, s in cases:
+        _, parts = ops._two_pass_params(ops._invert_affine(ops.affine_matrices(aff, s, s)))
+        bounds = _tap_bounds(parts, s)
+        for y0 in range(0, s, tile):
+            for x0 in range(0, s, tile):
+                rows = slice(y0, y0 + tile)
+                edges = [x0, min(x0 + tile, s) - 1]
+                for t, reduce in zip(bounds, (torch.amin, torch.amax, torch.amin, torch.amax)):
+                    every = reduce(t[:, rows, x0 : x0 + tile], (1, 2))
+                    assert torch.equal(every, reduce(t[:, rows, edges], (1, 2))), (s, y0, x0)
+
+
 @pytest.mark.cuda
 def test_cuda_warp_kernel_matches_plain_version():
     """The two-pass warp (#3) at rotations to +-90 deg with both swap
@@ -154,6 +204,33 @@ def test_cuda_warp_kernel_matches_plain_version():
         torch.cuda.synchronize()
         assert warp.warp_affine_two_pass.launches == before + 1 and out.dtype == torch.float32
         torch.testing.assert_close(out, warp.warp_affine_two_pass_reference(x, swap, wp), atol=1e-5, rtol=0)
+        eye = torch.tensor([[1.0, 0.0, 0.0, 0.0, 1.0, 0.0]], device="cuda").expand(b, 6)
+        assert torch.equal(warp.warp_affine_two_pass(x, torch.zeros_like(swap), eye), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [4, 5])
+def test_cuda_warp_kernel_over_affine_sweep(c):
+    """The two-pass warp (#3) over AFFINE_SWEEP, one image per affine, at
+    sizes that are not multiples of its 32-pixel tile, with every image in
+    both orientations (the swap flags as drawn, then flipped); the
+    zoom-out's taps leave the staged box at 129. Exact at the identity."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels have no CPU mode (run chip_smoke.py on the card)")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    b = len(AFFINE_SWEEP)
+    for s in (37, 129):
+        x = torch.rand((b, c, s, s), device="cuda", generator=gen)
+        col = torch.tensor(AFFINE_SWEEP, device="cuda").T
+        aff = {"angle": col[0], "scale": col[1], "shear_x": col[2], "shear_y": col[3], "tx": col[4] * s,
+               "ty": col[5] * s, "applied": torch.ones(b, dtype=torch.bool, device="cuda")}
+        swap, parts = ops._two_pass_params(ops._invert_affine(ops.affine_matrices(aff, s, s)))
+        assert swap.any() and not swap.all()
+        wp = torch.stack(parts, dim=-1)
+        for flags in (swap, ~swap):
+            out = warp.warp_affine_two_pass(x, flags, wp)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out, warp.warp_affine_two_pass_reference(x, flags, wp), atol=1e-5, rtol=0)
         eye = torch.tensor([[1.0, 0.0, 0.0, 0.0, 1.0, 0.0]], device="cuda").expand(b, 6)
         assert torch.equal(warp.warp_affine_two_pass(x, torch.zeros_like(swap), eye), x)
 

@@ -76,23 +76,102 @@ def test_wrapper_refuses_other_devices():
         pool.max_pool_3x3_s2(torch.empty((1, 1, 4, 4), device="meta"))
 
 
+def _unaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` one element past a 16-byte boundary (what
+    a view into a larger buffer, such as a batch slice, can be)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+def test_wrapper_takes_autograd_only_for_a_gradient():
+    """An input that needs a gradient goes through the autograd.Function;
+    under no_grad (serving) or without requires_grad the forward is called
+    directly, with the same values and no graph."""
+    x = torch.from_numpy(np.random.default_rng(8).normal(size=(2, 3, 9, 8)).astype(np.float32))
+    xg = x.clone().requires_grad_()
+    y = pool.max_pool_3x3_s2(xg)
+    assert type(y.grad_fn).__name__ == "_MaxPool3x3S2Backward"
+    with torch.no_grad():
+        y_ng = pool.max_pool_3x3_s2(xg)
+    y_plain = pool.max_pool_3x3_s2(x)
+    assert y_ng.grad_fn is None and y_plain.grad_fn is None
+    assert torch.equal(y_ng, y.detach()) and torch.equal(y_plain, y.detach())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_cuda_kernel_matches_reference(dtype):
+    """Exact (values and NaN positions) on the stem's shape, odd sizes, a
+    1x1 plane, widths that are not a multiple of 16 or of 8 (the kernel's
+    cells span 16 input columns) and unaligned views, with NaN and -inf
+    placed."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the kernel has no CPU mode (run chip_smoke.py on the card)")
     gen = torch.Generator().manual_seed(3)
-    for shape in [(2, 64, 128, 128), (2, 8, 31, 17), (1, 3, 1, 1)]:
-        x = torch.randn(shape, generator=gen).to("cuda", dtype)
-        x.view(-1)[::97] = float("nan")
-        x.view(-1)[5::31] = float("-inf")
-        before = pool.max_pool_3x3_s2.launches
-        out = pool.max_pool_3x3_s2(x)
-        torch.cuda.synchronize()
-        ref = pool.max_pool_3x3_s2_reference(x)
-        assert pool.max_pool_3x3_s2.launches == before + 1
-        assert torch.equal(out.isnan(), ref.isnan())
-        assert torch.equal(out.nan_to_num(0.0), ref.nan_to_num(0.0))
+    shapes = [(2, 64, 128, 128), (2, 8, 31, 17), (1, 3, 1, 1), (2, 4, 30, 40), (2, 4, 29, 36), (1, 2, 33, 130)]
+    for shape in shapes:
+        for view in (False, True):
+            x = torch.randn(shape, generator=gen).to("cuda", dtype)
+            x.view(-1)[::97] = float("nan")
+            x.view(-1)[5::31] = float("-inf")
+            if view:
+                x = _unaligned(x)
+                assert x.data_ptr() % 16 != 0
+            before = pool.max_pool_3x3_s2.launches
+            out = pool.max_pool_3x3_s2(x)
+            torch.cuda.synchronize()
+            ref = pool.max_pool_3x3_s2_reference(x)
+            assert pool.max_pool_3x3_s2.launches == before + 1
+            assert torch.equal(out.isnan(), ref.isnan())
+            assert torch.equal(out.nan_to_num(0.0), ref.nan_to_num(0.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_no_grad_path_counts_one_launch_and_matches_autograd(dtype):
+    """The forward without autograd (no_grad, the serving path) launches the
+    kernel once and gives the tensor the autograd path gives."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode (run chip_smoke.py on the card)")
+    x = torch.relu(torch.randn((1, 64, 128, 128), generator=torch.Generator().manual_seed(9))).to("cuda", dtype)
+    xg = x.clone().requires_grad_()
+    before = pool.max_pool_3x3_s2.launches
+    with torch.no_grad():
+        fast = pool.max_pool_3x3_s2(xg)
+    assert pool.max_pool_3x3_s2.launches == before + 1 and fast.grad_fn is None
+    slow = pool.max_pool_3x3_s2(xg)
+    assert pool.max_pool_3x3_s2.launches == before + 2 and slow.grad_fn is not None
+    assert torch.equal(fast, slow.detach())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_kernels_launch_on_the_tensors_device(dtype):
+    """A batch on another card than the current one: the forward and the
+    gradient run there, on that card's current stream, exactly, and the
+    current card stays the current one."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    gen = torch.Generator().manual_seed(10)
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    current = torch.cuda.current_device()
+    assert dev.index != current
+    x = torch.round(torch.randn((2, 8, 31, 17), generator=gen) * 1.5).to(dev, dtype)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):  # dev's current stream is `side` in this block
+        torch.cuda.set_device(current)  # ... and another card the current one
+        y = pool.max_pool_3x3_s2(x)
+        assert torch.cuda.current_device() == current
+    torch.cuda.synchronize(dev)
+    assert torch.equal(y, pool.max_pool_3x3_s2_reference(x))
+    xg = x.clone().requires_grad_()
+    out = pool.max_pool_3x3_s2(xg)
+    g = torch.randn(out.shape, generator=gen).to(dev, dtype)
+    out.backward(g)
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.current_device() == current
+    assert torch.equal(xg.grad, pool.max_pool_3x3_s2_backward_reference(x, out.detach(), g))
 
 
 def _jax_bwd():
@@ -205,10 +284,7 @@ def test_cuda_backward_kernel_matches_reference_exactly(dtype):
     x = torch.round(torch.randn((2, 8, 32, 64), generator=gen) * 1.5).to("cuda", dtype)
     y = pool.max_pool_3x3_s2(x)
     g = torch.randn(y.shape, generator=gen).to("cuda", dtype)
-    views = []
-    for t in (x, y, g):
-        buf = torch.empty(t.numel() + 1, dtype=dtype, device="cuda")
-        views.append(buf[1:].view(t.shape).copy_(t))
+    views = [_unaligned(t) for t in (x, y, g)]
     out = pool.max_pool_3x3_s2_backward(*views)
     assert views[0].data_ptr() % 16 != 0
     assert torch.equal(out, pool.max_pool_3x3_s2_backward_reference(x, y, g))
