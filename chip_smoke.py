@@ -19,9 +19,12 @@ non-zero exit:
      the three fused augmentation kernels at (256, 5, 256, 256) in f32 (atol
      1e-5) and bf16 (one ulp: rtol 2^-7, atol 2^-9) and at (256, 4, 256,
      256) f32 (the 4-channel warp branch's input), with a swapped image and
-     a rejected transplant for the ultra kernel, and over a sweep of affines
-     (the config's extremes and a zoom-out past it) at sizes 37, 129 and
-     256; CUDA-event times of the kernel, the plain version and, where one
+     a rejected transplant for the ultra kernel, at odd sizes with C = 3-6
+     and 8 (the chain and warp kernels' instantiations), a batch slice whose
+     base is not 16-byte aligned and an unaligned view at a width that is a
+     multiple of 4 (their scalar paths), and over a sweep of affines (the
+     config's extremes and a zoom-out past it) at sizes 37, 129 and 256;
+     CUDA-event times of the kernel, the plain version and, where one
      exists, the PyTorch library call that computes the same function, and
      each timed kernel's device time split over its launches (torch.profiler,
      kernels only), for the maxpool forward also beside F.max_pool2d's and
@@ -528,9 +531,10 @@ def _sweep_inputs(gen, s, dtype):
 def phase_augment_kernels():
     """Each fused augmentation kernel against its plain version, at the
     train shapes (256, 5, 256, 256) in f32 and bf16 and (256, 4, 256, 256)
-    in f32 (the warp + chain branch's 4-channel input), at odd shapes, and
-    over AFFINE_SWEEP at sizes 37, 129 and 256; each kernel's device time
-    split over its launches at the train shapes."""
+    in f32 (the warp + chain branch's 4-channel input), at odd shapes with
+    C = 3-6 and 8, on a batch slice off a 16-byte boundary and an unaligned
+    view, and over AFFINE_SWEEP at sizes 37, 129 and 256; each kernel's
+    device time split over its launches at the train shapes."""
     import torch
 
     from perseus_tpu_torch.augment import fused
@@ -539,18 +543,27 @@ def phase_augment_kernels():
     results = {}
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [(256, 5, 256, f32, "timed"), (256, 5, 256, bf16, "timed"), (256, 4, 256, f32, "timed"),
-             (3, 4, 37, f32, "odd"), (3, 5, 37, bf16, "odd")]
+             (3, 4, 37, f32, "odd"), (3, 5, 37, bf16, "odd"), (3, 3, 37, f32, "odd"), (3, 3, 37, bf16, "odd"),
+             (3, 6, 37, f32, "odd"), (3, 8, 37, bf16, "odd"), (4, 5, 37, f32, "batch slice"),
+             (4, 5, 37, bf16, "batch slice"), (3, 4, 64, f32, "unaligned view"), (3, 4, 64, bf16, "unaligned view")]
     cases += [(len(AFFINE_SWEEP), 5, s, dtype, "affine sweep") for s in (37, 129, 256) for dtype in (f32, bf16)]
     for b, c, s, dtype, case in cases:
         if case == "affine sweep":
             x, params, donor, swap, wp = _sweep_inputs(gen, s, dtype)
         else:
             x, params, donor, swap, wp = _aug_inputs(gen, b, c, s, dtype)
+        if case == "batch slice":  # at an odd size, images 1.. start off a 16-byte boundary
+            x, params, donor, swap, wp = x[1:], {k: v[1:] for k, v in params.items()}, None, None, wp[1:]
+            b -= 1
+            if x.data_ptr() % 16 == 0:
+                raise AssertionError("the batch slice is aligned: it would not reach the scalar path")
+        elif case == "unaligned view":  # a width that is a multiple of 4, the base one element off
+            x = unaligned(x)
         calls = {
             "chain": (fused.fused_apply, fused.reference_apply, (x, params)),
             "warp": (fused.fused_warp_apply, fused.fused_warp_reference, (x, wp, params)),
         }
-        if c == 5:
+        if c == 5 and donor is not None:
             calls["ultra"] = (fused.fused_ultra_apply, fused.fused_ultra_reference, (x, donor, swap, wp, params))
         for kind, (kernel, plain, args) in calls.items():
             out = kernel(*args)
@@ -577,6 +590,41 @@ def phase_augment_kernels():
         del x, params, calls
         torch.cuda.empty_cache()
     return results
+
+
+def augment_kernel_times(label: str = "") -> dict:
+    """CUDA-event times (mean over 20 launches) of the augmentation kernels
+    at their train shapes, each with its device split over its launches:
+    #4 and #5 at (256, 5, 256, 256) and (256, 4, 256, 256), #6 at (256, 5,
+    256, 256), in f32 and bf16, and #3 at (256, 5, 256, 256) f32. The
+    inputs come from a fixed
+    seed, so two trees' times taken in turns on one card compare: run this
+    function from inside each tree (a parent unpacked with git archive
+    imports its own package), one process per turn."""
+    import torch
+
+    from perseus_tpu_torch.augment import fused, warp
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    times = {}
+    for c, dtype in ((5, torch.float32), (5, torch.bfloat16), (4, torch.float32), (4, torch.bfloat16)):
+        x, params, donor, swap, wp = _aug_inputs(gen, 256, c, 256, dtype)
+        calls = {"chain": lambda: fused.fused_apply(x, params), "warp": lambda: fused.fused_warp_apply(x, wp, params)}
+        if c == 5:
+            calls["ultra"] = lambda: fused.fused_ultra_apply(x, donor, swap, wp, params)
+        for kind, fn in calls.items():
+            name = f"{kind} {(256, c, 256, 256)} {str(dtype).removeprefix('torch.')}"
+            times[name] = time_ms(fn, iters=20, warmup=3)
+            log(f"{label}augment times {name}: kernel {times[name]:.6f} ms")
+            log_split(f"{label}augment times {name}", fn)
+        if c == 5 and dtype == torch.float32:
+            fn = lambda: warp.warp_affine_two_pass(x, swap, wp)  # noqa: E731
+            times["two-pass warp (256, 5, 256, 256) float32"] = time_ms(fn, iters=20, warmup=3)
+            log(f"{label}augment times two-pass warp (256, 5, 256, 256) float32: kernel "
+                f"{times['two-pass warp (256, 5, 256, 256) float32']:.6f} ms")
+        del x, params, calls
+        torch.cuda.empty_cache()
+    return times
 
 
 def _warp_params(gen, b, s, identity=False):

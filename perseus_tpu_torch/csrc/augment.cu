@@ -40,55 +40,78 @@
 // is 1.25 MiB, far above one SM's 227 KB of shared memory, and the chain
 // has two per-image reductions (the transplant's seg ratio, the contrast's
 // mean gray) and a 5x5 neighbourhood (the blur) in it, so it runs as up to
-// three launches on the same stream, each block on a 32x32 output tile of
-// one image:
+// three launches on the same stream:
 //
 //   (a) seg_count (ultra only): per image, the exact integer count of
 //       pixels whose new seg is 1 after the candidate transplant, from
 //       4-pixel vector loads of the image's and the donor's depth and seg
 //       planes; the gate ratio in [lb, ub] follows from it.
-//   (b) stage 1: the source, the warp, the two erase rects, the Planckian
-//       gains and brightness; RGB goes to an f32 scratch and the tile's
-//       gray to a partial sum. The depth chain is pointwise and seg passes
-//       through: both are stored here. The two-pass warp of output (y, x)
-//       is 4 reads: for j in {j0, j0 + 1}, j0 = floor(gam[y, x]), the
-//       column tap inter(y, j) = src(i0, j) v_w0 + src(i0 + 1, j) v_w1
-//       with i0 = floor(rhoT[j, y]) (the row taps differ per column: this
-//       is not 2-D bilinear), blended with h_w0, h_w1 in _warp_planes'
-//       order. The last tile of an image to finish sums the image's tile
-//       partials in a fixed order into its mean gray (deterministic).
-//         ultra (Hopper redesign): the block first bounds every tap of its
-//       tile (their row and column ranges, reduced over the block), then
-//       stages that source box once in shared memory: the stored image and
-//       its donor read row by row, coalesced, the transplant applied once
-//       per source pixel, written transposed when the image is swapped
-//       (odd row pitch: no bank conflicts either way). Taps read the box.
-//       A tap outside the staged box (only when the box exceeds the
-//       kBoxPix budget, e.g. a zoom-out beyond the config's scale range)
-//       reads global memory through the same source function, so the
-//       values stay bit-identical. C = 5 is a compile-time constant: the
-//       per-pixel values live in registers. Every box of the default
-//       config's affines fits the budget (tests/test_torch_augment_cuda.py).
-//         chain and warp: each pixel loads its source (4 taps each, for
-//       the warp) from global memory, per channel.
-//   (c) stage 2: the tile with a 2-pixel halo in shared memory: contrast
-//       about the image's mean gray (one value, read by every block),
-//       saturation, hue, the 5-tap separable reflect-padded blur (-1 -> 1,
-//       -2 -> 2; taps summed in _blur_plane's order), the plasma shadow,
-//       one cast at the store.
+//   (b) stage 1, a block per 32x32 output tile: the source, the warp, the
+//       two erase rects, the Planckian gains and brightness; RGB goes to an
+//       f32 scratch and the tile's gray to a partial sum. The depth chain is
+//       pointwise and seg passes through: both are stored here. The
+//       two-pass warp of output (y, x) is 4 reads: for j in {j0, j0 + 1},
+//       j0 = floor(gam[y, x]), the column tap inter(y, j) = src(i0, j) v_w0
+//       + src(i0 + 1, j) v_w1 with i0 = floor(rhoT[j, y]) (the row taps
+//       differ per column: this is not 2-D bilinear), blended with h_w0,
+//       h_w1 in _warp_planes' order. The last tile of an image to finish
+//       sums the image's tile partials in a fixed order into its mean gray
+//       (deterministic). C is a compile-time constant (3, 4 and 5; one
+//       generic instantiation for 6-8, the same arithmetic over up to 8
+//       channels), so the per-pixel values live in registers; offsets
+//       inside an image are 32-bit (the launch checks c h w < 2^31).
+//         chain (Hopper redesign): no taps, so a thread takes 4 consecutive
+//       pixels of a row and moves the image planes, the RGB scratch and
+//       depth / seg as 16-byte words in f32 (8 in bf16) and the fields as
+//       8-byte words. Widths that are not a multiple of 4 and bases that
+//       are not aligned (a batch slice can make one) take a scalar path
+//       with the same arithmetic.
+//         warp and ultra (Hopper redesign): the block first bounds every
+//       tap of its tile (their row and column ranges, reduced over the
+//       block), then stages that source box once in shared memory, in the
+//       storage type, read row by row, coalesced, two stored columns per
+//       pass (two loads in flight). Taps read the box. A tap outside the
+//       staged box (only when the box exceeds the kBoxPix budget, e.g. a
+//       zoom-out beyond the config's scale range) reads global memory
+//       through the same source function, so the values stay
+//       bit-identical. Every box of the default config's affines fits the
+//       budget (tests/test_torch_augment_cuda.py). The warp's input is
+//       already swap-adjusted (ops._two_pass_setup): its box comes from the
+//       taps of the tile's two edge columns, and in f32 it is a plain copy,
+//       staged by asynchronous copies (cp.async) that all go out before the
+//       block waits. Ultra's source is the stored image and its donor, the
+//       transplant applied once per source pixel, written transposed when
+//       the image is swapped (odd row pitch: no bank conflicts either way);
+//       its box comes from every pixel's taps (the edge-column bound made
+//       it spill).
+//   (c) stage 2, a block per 64x32 output tile (1.20x its pixels with the
+//       halo, against 1.27x for 32x32): the tile with a 2-pixel halo in
+//       shared memory: contrast about the image's mean gray (one value,
+//       read by every block), saturation, hue, the 5-tap separable
+//       reflect-padded blur (-1 -> 1, -2 -> 2; the vertical pass first, taps
+//       summed in _blur_plane's order), the plasma shadow, one cast at the
+//       store. 4 x 68 threads: a thread owns a halo column (its source
+//       column reflected once) and computes the colour of every 4th row of
+//       it, two rows at a time; the vertical pass takes a column segment of
+//       4 outputs per thread (8 loads), the horizontal pass a row segment of
+//       4 (two 16-byte loads), which also stores 4 outputs as one word; each
+//       phase divides evenly among the threads. The hue needs no fmodf and
+//       no divergent branch (see hue_rotate); the clamps are NaN-propagating
+//       min / max.
 //
-// Bound on this card: bytes. Per pixel the chain does some 100 f32
+// Bound on this card: bytes. Per pixel the chain does some 150 f32
 // operations, far below the compute rate; the least traffic is one read of
 // the image (its images are also the donors), fields and plasma and one
-// write of the output: 48 B/px at C = 5 in f32. The ultra design moves
-// about 110 B/px: the seg count's 16, the image and the taken donor pixels,
-// the RGB scratch written and read again (24), the halo. Measured
-// (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W) at (256, 5, 256, 256)
-// f32: 1.01 ms, of which seg count 0.07, stage 1 0.63, stage 2 0.30. (The
-// first version ran one thread per output pixel, loading each of the 4
-// taps' 5 channels and its donor's from global memory and evaluating the
-// transplant per tap, with 64-bit pixel indexing and runtime-indexed
-// per-pixel arrays in local memory: 3.0 ms there.)
+// write of the output: 48 B/px at C = 5 in f32. The two-launch design adds
+// the RGB scratch round trip (24 B/px in f32): contrast needs the image's
+// mean gray, which only a finished stage 1 knows. Measured (chip_smoke.py,
+// NVIDIA H100 80GB HBM3, 700.00 W) at (256, 5, 256, 256) f32 before this
+// design of stages 1 (chain, warp) and 2: chain 0.69 ms, warp (C = 4) 0.77,
+// ultra 1.01 (seg count 0.07, stage 1 0.63, stage 2 0.30); PERF.md has the
+// times of this one. (The first ultra ran one thread per output pixel,
+// loading each of the 4 taps' 5 channels and its donor's from global
+// memory and evaluating the transplant per tap, with 64-bit pixel indexing
+// and runtime-indexed per-pixel arrays in local memory: 3.0 ms there.)
 //
 // Traps, each handled where it bites below:
 //   * FMA contraction: the file is built with -fmad=false (models/_build.py)
@@ -121,13 +144,21 @@ namespace {
 constexpr int kScalars = 29;
 constexpr int kThreads = 256;
 constexpr int kMaxC = 8;
-constexpr int kTile = 32;                            // output tile of stages 1 and 2
-constexpr int kTileRows = kThreads / kTile;          // a block is kTile x kTileRows threads
-constexpr int kHalo = kTile + 4;
+constexpr int kAnyC = kMaxC;                         // the generic instantiation: c in 6-8 at run time
+constexpr int kTile = 32;                            // output tile of stage 1
+constexpr int kTileRows = kThreads / kTile;          // a stage-1 block is kTile x kTileRows threads
 constexpr int kCountPix = 4096;                      // seg_count pixels per block
 constexpr int kUltraC = 5;
-// ultra's source box budget, pixels per channel: 5 x 2800 f32 is 56,000 B,
-// so four blocks fit an SM's 228 KB
+// stage 2: a 64x32 output tile, its halo 68 x 36, rows of 68 floats (16-byte
+// aligned); s_in (the halo's colour) and s_v (the vertical pass) together
+// 3 x (36 + 32) x 68 x 4 B = 55,488 B, four blocks per SM
+constexpr int kS2W = 64, kS2H = 32;
+constexpr int kS2HaloW = kS2W + 4, kS2HaloH = kS2H + 4;
+constexpr int kS2Pitch = kS2HaloW;
+constexpr int kS2Threads = 4 * kS2HaloW;            // 272: a thread per halo column, 4 rows a pass
+constexpr int kS2Smem = 3 * (kS2HaloH + kS2H) * kS2Pitch * (int)sizeof(float);
+// the staged source box's budget of the warp and ultra stage 1, pixels per
+// channel: 5 x 2800 f32 is 56,000 B, so four blocks fit an SM's 228 KB
 constexpr int kBoxPix = 2800;
 constexpr int kBoxMaxCols = 127;
 // the standalone warp's: channels staged per pass (the unfused chain's C),
@@ -156,16 +187,49 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
   memcpy(&hi, &u.y, 4);
   v[0] = __low2float(lo); v[1] = __high2float(lo); v[2] = __low2float(hi); v[3] = __high2float(hi);
 }
+// read-only global memory through the non-coherent path (ld.global.nc),
+// which the compiler may move across the kernel's stores
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+__device__ __forceinline__ void ldg4(const float* p, float* v) {
+  const float4 u = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+}
+__device__ __forceinline__ void ldg4(const __nv_bfloat16* p, float* v) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  __nv_bfloat162 lo, hi;
+  memcpy(&lo, &u.x, 4);
+  memcpy(&hi, &u.y, 4);
+  v[0] = __low2float(lo); v[1] = __high2float(lo); v[2] = __low2float(hi); v[3] = __high2float(hi);
+}
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]), hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 u;
+  memcpy(&u.x, &lo, 4);
+  memcpy(&u.y, &hi, 4);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+template <typename T>
+inline bool aligned4(const void* p) {  // 4 values of T as one word
+  return ((uintptr_t)p % (4 * sizeof(T))) == 0;
+}
 
-// torch.clamp(x, 0, 1): NaN stays NaN (fminf/fmaxf would drop it)
-__device__ __forceinline__ float clip01(float x) { return x < 0.0f ? 0.0f : (x > 1.0f ? 1.0f : x); }
-
-// Floor modulo, JAX's % on floats: truncating fmodf, moved into [0, m)
-// when its sign differs from m's.
-__device__ __forceinline__ float floor_mod(float x, float m) {
-  float t = fmodf(x, m);
-  if (t != 0.0f && ((t < 0.0f) != (m < 0.0f))) t += m;
-  return t;
+// torch.clamp(x, 0, 1): NaN stays NaN (fminf/fmaxf would drop it). On the
+// card, two NaN-propagating min/max (sm_80+) in place of compares and
+// selects: the same values (a -0 input gives +0).
+__device__ __forceinline__ float clip01(float x) {
+#ifdef __CUDA_ARCH__
+  float y;
+  asm("max.NaN.f32 %0, %1, 0f00000000;\n\tmin.NaN.f32 %0, %0, 0f3F800000;" : "=f"(y) : "f"(x));
+  return y;
+#else
+  return x < 0.0f ? 0.0f : (x > 1.0f ? 1.0f : x);
+#endif
 }
 
 template <typename T>
@@ -307,57 +371,92 @@ __device__ __forceinline__ Taps warp_taps(float i00, float i01, float t0, float 
   return tp;
 }
 
-// Per-image pointers of stage 1.
+// Per-image pointers of stage 1; offsets inside an image are 32-bit.
 template <typename T>
 struct Image {
   const float* sv;
   const __nv_bfloat16* fields;
   T* out;
   float* rgb;
-  int64_t hw;
+  int hw;
 };
 template <typename T>
 __device__ __forceinline__ Image<T> image_of(const Args<T>& a, int bi) {
-  const int64_t hw = (int64_t)a.h * a.w;
+  const int hw = a.h * a.w;
   return {a.sv + (int64_t)bi * kScalars, a.fields + (int64_t)bi * 3 * hw, a.out + (int64_t)bi * a.c * hw,
           a.rgb + (int64_t)bi * 3 * hw, hw};
 }
 
-// Stage 1 after the source: the erase rects, gains and brightness at
-// output pixel (y, x) (offset px in its plane) with source values v of c
-// channels; stores RGB to the scratch and depth / seg to the output and
-// returns the pixel's gray.
-template <typename T>
-__device__ __forceinline__ float stage1_tail(const Image<T>& im, int c, int y, int x, int px, float* v) {
-  const float* sv = im.sv;
-  const int64_t hw = im.hw;
-  const float yf = (float)y, xf = (float)x;
-  // two erase rects, on every channel
+// The image's scalars of stage 1, in registers: the erase rects (their
+// bottom and right edges summed as the plain version sums them), the gains,
+// brightness and the depth chain's.
+struct Chain {
+  bool e_on[2];
+  float e_top[2], e_bot[2], e_left[2], e_right[2];
+  float gain_r, gain_b, f_b, cs, near_mean, near_value, far_mean, far_value;
+};
+__device__ __forceinline__ Chain chain_of(const float* sv) {
+  Chain k;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const float* s = sv + 5 * e;
+    k.e_on[e] = s[0] > 0.5f;
+    k.e_top[e] = s[1];
+    k.e_bot[e] = s[1] + s[3];
+    k.e_left[e] = s[2];
+    k.e_right[e] = s[2] + s[4];
+  }
+  k.gain_r = sv[10]; k.gain_b = sv[11]; k.f_b = sv[12];
+  k.cs = sv[24]; k.near_mean = sv[25]; k.near_value = sv[26]; k.far_mean = sv[27]; k.far_value = sv[28];
+  return k;
+}
+
+// Stage 1 after the source, at output pixel (y, x) with source values v of
+// the NC (or, for kAnyC, up to 8) channels: the erase rects (on every
+// channel, in v), the Planckian gains and brightness into rgb, the depth
+// chain from v[3] and the three fields into depth; returns the pixel's gray.
+template <int NC>
+__device__ __forceinline__ float chain_pixel(const Chain& k, float yf, float xf, float* v, float f_add,
+                                             float f_near, float f_far, float* rgb, float& depth) {
   bool erase = false;
-  for (int o = 0; o <= 5; o += 5) {
-    const float top = sv[o + 1], left = sv[o + 2];
-    erase |= (yf >= top) && (yf < top + sv[o + 3]) && (xf >= left) && (xf < left + sv[o + 4]) &&
-             (sv[o] > 0.5f);
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+    erase |= k.e_on[e] && (yf >= k.e_top[e]) && (yf < k.e_bot[e]) && (xf >= k.e_left[e]) && (xf < k.e_right[e]);
+  if (erase) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) v[c] = 0.0f;
   }
-  if (erase)
-    for (int k = 0; k < c; ++k) v[k] = 0.0f;
-  // Planckian gains + brightness
-  const float f_b = sv[12];
-  const float rr = clip01(clip01(v[0] * sv[10]) * f_b);
-  const float gg = clip01(v[1] * f_b);
-  const float bb = clip01(clip01(v[2] * sv[11]) * f_b);
-  im.rgb[px] = rr;
-  im.rgb[hw + px] = gg;
-  im.rgb[2 * hw + px] = bb;
-  if (c > 3) {
-    const float cs = sv[24];
-    float scaled = cs * v[3] + ld(im.fields[px]);
-    if (scaled < sv[25] + ld(im.fields[hw + px])) scaled = sv[26];
-    if (scaled > sv[27] + ld(im.fields[2 * hw + px])) scaled = sv[28];
-    im.out[3 * hw + px] = st<T>(scaled / cs);
+  rgb[0] = clip01(clip01(v[0] * k.gain_r) * k.f_b);
+  rgb[1] = clip01(v[1] * k.f_b);
+  rgb[2] = clip01(clip01(v[2] * k.gain_b) * k.f_b);
+  if (NC > 3) {
+    float scaled = k.cs * v[3] + f_add;
+    if (scaled < k.near_mean + f_near) scaled = k.near_value;
+    if (scaled > k.far_mean + f_far) scaled = k.far_value;
+    depth = scaled / k.cs;
   }
-  for (int k = 4; k < c; ++k) im.out[k * hw + px] = st<T>(v[k]);
-  return rr * 0.299f + gg * 0.587f + bb * 0.114f;
+  return rgb[0] * 0.299f + rgb[1] * 0.587f + rgb[2] * 0.114f;
+}
+
+// chain_pixel at one pixel (offset px in its plane) with scalar loads and
+// stores: RGB to the scratch, depth and the channels past it to the output.
+template <int NC, typename T>
+__device__ __forceinline__ float tail_pixel(const Chain& k, const Image<T>& im, int c, int y, int x, int px,
+                                            float* v) {
+  const int hw = im.hw;
+  float f[3] = {0.0f, 0.0f, 0.0f}, rgb[3], depth;
+  if (NC > 3) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) f[i] = ldg(im.fields + i * hw + px);
+  }
+  const float gray = chain_pixel<NC>(k, (float)y, (float)x, v, f[0], f[1], f[2], rgb, depth);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) im.rgb[i * hw + px] = rgb[i];
+  if (NC > 3) im.out[3 * hw + px] = st<T>(depth);
+#pragma unroll
+  for (int ch = 4; ch < NC; ++ch)
+    if (ch < c) im.out[ch * hw + px] = st<T>(v[ch]);
+  return gray;
 }
 
 // The end of stage 1: the block's gray (its threads' sums in a fixed order)
@@ -389,43 +488,71 @@ __device__ __forceinline__ void finish_gray(const Args<T>& a, int bi, float gray
   }
 }
 
-// (b) chain and warp: each pixel reads its source from global memory
-template <typename T, int MODE>
-__global__ void __launch_bounds__(kThreads) stage1(Args<T> a) {
+// (b) chain: a thread takes 4 consecutive pixels of one row of the 32x32
+// tile (8 threads a row), as 16-byte (f32) or 8-byte (bf16) words when vec
+// (w % 4 == 0 and every base aligned: the 4 pixels then lie in the row),
+// else one pixel at a time with the same arithmetic.
+template <typename T, int NC>
+__global__ void __launch_bounds__(kThreads) stage1_chain(Args<T> a, bool vec) {
   const int bi = blockIdx.z;
-  const int h = a.h, w = a.w, c = a.c;
+  const int h = a.h, w = a.w, c = NC == kAnyC ? a.c : NC;
   const Image<T> im = image_of(a, bi);
-  const int64_t hw = im.hw;
+  const int hw = im.hw;
   const T* img = a.img + (int64_t)bi * c * hw;
-  float i00 = 0.f, i01 = 0.f, t0 = 0.f, p = 0.f, q = 0.f, r = 0.f;
-  if (MODE == 1) {
-    const float* wp = a.wp + (int64_t)bi * 6;
-    i00 = wp[0]; i01 = wp[1]; t0 = wp[2]; p = wp[3]; q = wp[4]; r = wp[5];
-  }
-  const int x = blockIdx.x * kTile + threadIdx.x;
+  const Chain k = chain_of(im.sv);
+  const int tid = threadIdx.y * kTile + threadIdx.x;
+  const int y = blockIdx.y * kTile + (tid >> 3), x = blockIdx.x * kTile + 4 * (tid & 7);
   float gray_sum = 0.0f;
-  for (int y = blockIdx.y * kTile + threadIdx.y; y < min(h, (int)(blockIdx.y + 1) * kTile); y += kTileRows) {
-    if (x >= w) break;
+  if (y < h && x < w) {
     const int px = y * w + x;
-    float v[kMaxC];
-    if (MODE == 0) {
-      for (int k = 0; k < c; ++k) v[k] = ld(img[k * hw + px]);
-    } else {
-      const Taps tp = warp_taps(i00, i01, t0, p, q, r, (float)y, (float)x, h, w);
-      float inter[2][kMaxC];
-      for (int t = 0; t < 2; ++t) {
-        const int64_t o0 = (int64_t)tp.i[t][0] * w + tp.j[t], o1 = (int64_t)tp.i[t][1] * w + tp.j[t];
-        for (int k = 0; k < c; ++k)
-          inter[t][k] = ld(img[k * hw + o0]) * tp.vwt[t][0] + ld(img[k * hw + o1]) * tp.vwt[t][1];
+    if (vec) {
+      float v[4][NC] = {}, u[4];
+#pragma unroll
+      for (int ch = 0; ch < NC; ++ch) {
+        if (ch < c) {
+          ldg4(img + ch * hw + px, u);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) v[i][ch] = u[i];
+        }
       }
-      for (int k = 0; k < c; ++k) v[k] = inter[0][k] * tp.hwt[0] + inter[1][k] * tp.hwt[1];
+      float f[3][4] = {};
+      if (NC > 3) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) ldg4(im.fields + i * hw + px, f[i]);
+      }
+      float rgb[3][4], depth[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float o[3];
+        gray_sum += chain_pixel<NC>(k, (float)y, (float)(x + i), v[i], f[0][i], f[1][i], f[2][i], o, depth[i]);
+#pragma unroll
+        for (int j = 0; j < 3; ++j) rgb[j][i] = o[j];
+      }
+#pragma unroll
+      for (int j = 0; j < 3; ++j) store4(im.rgb + j * hw + px, rgb[j]);
+      if (NC > 3) store4(im.out + 3 * hw + px, depth);
+#pragma unroll
+      for (int ch = 4; ch < NC; ++ch) {
+        if (ch < c) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) u[i] = v[i][ch];
+          store4(im.out + ch * hw + px, u);
+        }
+      }
+    } else {
+      for (int i = 0; i < 4 && x + i < w; ++i) {
+        float v[NC] = {};
+#pragma unroll
+        for (int ch = 0; ch < NC; ++ch)
+          if (ch < c) v[ch] = ldg(img + ch * hw + px + i);
+        gray_sum += tail_pixel<NC>(k, im, c, y, x + i, px + i, v);
+      }
     }
-    gray_sum += stage1_tail(im, c, y, x, px, v);
   }
   finish_gray(a, bi, gray_sum);
 }
 
-// A tile's source box (the stage-1 ultra kernel and the standalone warp):
+// A tile's source box (the warp and ultra stage 1, the standalone warp):
 // the rows i0 .. i0 + nrows - 1 and columns j0 .. j0 + ncols - 1 of the
 // warp's input, channel k's value (li, lj) at [(k nrows + li) pitch + lj];
 // an odd row pitch, so a swapped image's transposed writes do not conflict.
@@ -492,22 +619,66 @@ __device__ __forceinline__ Box tile_box(float i00, float i01, float t0, float p,
 // Stages the box: `src(i, j, v)` gives the first nc (<= NC) channels of the
 // warp's input at row i, column j. Stored rows go by warp and stored columns
 // by lane, so the reads are coalesced in either orientation: a swapped
-// image's stored row is a column of the warp's input.
-template <int NC, typename T, typename Src>
+// image's stored row is a column of the warp's input. kPairs: a lane takes
+// two stored columns (32 apart) per pass, both read before either is
+// written, so two loads are in flight.
+template <int NC, bool kPairs, typename T, typename Src>
 __device__ __forceinline__ void stage_box(T* box, const Box& bx, bool swap, int tid, int nc, Src src) {
   if (bx.nrows <= 0) return;
   const int n_sr = swap ? bx.ncols : bx.nrows, n_sc = swap ? bx.nrows : bx.ncols;
-  for (int sr = tid >> 5; sr < n_sr; sr += kThreads / 32) {
-    for (int sc = tid & 31; sc < n_sc; sc += 32) {
-      // stored (sr, sc) of the box is the warp input's (li, lj), or (lj, li) when swapped
-      const int li = swap ? sc : sr, lj = swap ? sr : sc;
-      float v[NC];
-      src(bx.i0 + li, bx.j0 + lj, v);
+  const auto put = [&](int sr, int sc, const float* v) {
+    // stored (sr, sc) of the box is the warp input's (li, lj), or (lj, li) when swapped
+    const int li = swap ? sc : sr, lj = swap ? sr : sc;
 #pragma unroll
-      for (int k = 0; k < NC; ++k)
-        if (k < nc) box[(k * bx.nrows + li) * bx.pitch + lj] = st<T>(v[k]);
+    for (int k = 0; k < NC; ++k)
+      if (k < nc) box[(k * bx.nrows + li) * bx.pitch + lj] = st<T>(v[k]);
+  };
+  for (int sr = tid >> 5; sr < n_sr; sr += kThreads / 32) {
+    for (int sc = tid & 31; sc < n_sc; sc += kPairs ? 64 : 32) {
+      float v[NC];
+      src(bx.i0 + (swap ? sc : sr), bx.j0 + (swap ? sr : sc), v);
+      if (kPairs && sc + 32 < n_sc) {
+        const int sc1 = sc + 32;
+        float v1[NC];
+        src(bx.i0 + (swap ? sc1 : sr), bx.j0 + (swap ? sr : sc1), v1);
+        put(sr, sc, v);
+        put(sr, sc1, v1);
+      } else {
+        put(sr, sc, v);
+      }
     }
   }
+}
+
+// Asynchronous 4-byte copies global -> shared (cp.async, sm_80+) and the
+// wait for all of a thread's.
+__device__ __forceinline__ void copy_async4(float* smem, const float* gmem) {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"((unsigned)__cvta_generic_to_shared(smem)), "l"(gmem));
+#else
+  *smem = *gmem;
+#endif
+}
+__device__ __forceinline__ void copy_async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// Stages the box of an f32 warp input that needs no transform (no swap, no
+// transplant) by asynchronous copies, laid out as stage_box lays it: every
+// copy goes out before the thread waits, and none passes through registers.
+template <int NC>
+__device__ __forceinline__ void stage_box_copy(float* box, const Box& bx, int tid, int nc, const float* img, int hw,
+                                               int w) {
+  for (int sr = tid >> 5; sr < bx.nrows; sr += kThreads / 32)
+    for (int sc = tid & 31; sc < bx.ncols; sc += 32) {
+      const float* src = img + (bx.i0 + sr) * w + bx.j0 + sc;
+#pragma unroll
+      for (int k = 0; k < NC; ++k)
+        if (k < nc) copy_async4(box + (k * bx.nrows + sr) * bx.pitch + sc, src + k * hw);
+    }
+  copy_async_wait();
 }
 
 // The two-pass blend of output pixel taps tp over nc (<= NC) channels, in
@@ -538,6 +709,54 @@ __device__ __forceinline__ void blend_taps(const Taps& tp, const T* box, const B
   }
 #pragma unroll
   for (int k = 0; k < NC; ++k) v[k] = inter[0][k] * tp.hwt[0] + inter[1][k] * tp.hwt[1];
+}
+
+// (b) warp: the tile's source box of the swap-adjusted input staged in
+// shared memory (storage type, c x kBoxPix values), bounded from the
+// tile's edge columns, then the taps (at most 64 registers for the four
+// blocks per SM that a 5-channel f32 box allows; 128 for the 6-8 channels
+// of kAnyC, whose box allows two).
+template <typename T, int NC>
+__global__ void __launch_bounds__(kThreads, NC == kAnyC ? 2 : 4) stage1_warp(Args<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* box = reinterpret_cast<T*>(smem_raw);  // [c][rows][pitch]
+  __shared__ int s_lim[4];
+  const int bi = blockIdx.z;
+  const int h = a.h, w = a.w, c = NC == kAnyC ? a.c : NC;
+  const Image<T> im = image_of(a, bi);
+  const int hw = im.hw;
+  const T* img = a.img + (int64_t)bi * c * hw;
+  const float* wp = a.wp + (int64_t)bi * 6;
+  const float i00 = wp[0], i01 = wp[1], t0 = wp[2], p = wp[3], q = wp[4], r = wp[5];
+  const Chain k = chain_of(im.sv);
+  const int tid = threadIdx.y * kTile + threadIdx.x;
+  const int x = blockIdx.x * kTile + threadIdx.x;
+  const int y_begin = blockIdx.y * kTile + threadIdx.y, y_end = min(h, (int)(blockIdx.y + 1) * kTile);
+  const auto source = [&](int i, int j, float* v) {
+    const int o = i * w + j;
+#pragma unroll
+    for (int ch = 0; ch < NC; ++ch)
+      if (ch < c) v[ch] = ldg(img + ch * hw + o);
+  };
+
+  // 1. the box of the tile's taps; 2. staged once: f32 by asynchronous
+  // copies, bf16 through registers, two stored columns a pass
+  const Box bx = tile_box<true>(i00, i01, t0, p, q, r, h, w, tid, kBoxPix, s_lim);
+  if constexpr (sizeof(T) == sizeof(float))
+    stage_box_copy<NC>(box, bx, tid, c, img, hw, w);
+  else
+    stage_box<NC, true>(box, bx, false, tid, c, source);
+  __syncthreads();
+
+  // 3. the taps, from the box where they fall in it
+  float gray_sum = 0.0f;
+  for (int y = y_begin; y < y_end && x < w; y += kTileRows) {
+    const Taps tp = warp_taps(i00, i01, t0, p, q, r, (float)y, (float)x, h, w);
+    float v[NC];
+    blend_taps<NC>(tp, box, bx, c, source, v);
+    gray_sum += tail_pixel<NC>(k, im, c, y, x, y * w + x, v);
+  }
+  finish_gray(a, bi, gray_sum);
 }
 
 // All 5 channels of the ultra source at row i, column j of the warp's
@@ -578,14 +797,15 @@ __global__ void __launch_bounds__(kThreads, 4) stage1_ultra(Args<T> a) {
   const float i00 = wp[0], i01 = wp[1], t0 = wp[2], p = wp[3], q = wp[4], r = wp[5];
   const bool swap = wp[6] > 0.5f;
   const bool accept = accepted(a.counts, bi, h * w, a.lb, a.ub);
+  const Chain k = chain_of(im.sv);
   const int tid = threadIdx.y * kTile + threadIdx.x;
   const int x = blockIdx.x * kTile + threadIdx.x;
   const int y_begin = blockIdx.y * kTile + threadIdx.y, y_end = min(h, (int)(blockIdx.y + 1) * kTile);
   const auto source = [&](int i, int j, float* v) { ultra_source(img, don, hw, w, i, j, swap, accept, v); };
 
-  // 1. the box of the tile's taps; 2. staged once
+  // 1. the box of the tile's taps; 2. staged once, two stored columns a pass
   const Box bx = tile_box<false>(i00, i01, t0, p, q, r, h, w, tid, kBoxPix, s_lim);
-  stage_box<kUltraC>(box, bx, swap, tid, kUltraC, source);
+  stage_box<kUltraC, true>(box, bx, swap, tid, kUltraC, source);
   __syncthreads();
 
   // 3. the taps, from the box where they fall in it
@@ -594,12 +814,23 @@ __global__ void __launch_bounds__(kThreads, 4) stage1_ultra(Args<T> a) {
     const Taps tp = warp_taps(i00, i01, t0, p, q, r, (float)y, (float)x, h, w);
     float v[kUltraC];
     blend_taps<kUltraC>(tp, box, bx, kUltraC, source, v);
-    gray_sum += stage1_tail(im, kUltraC, y, x, y * w + x, v);
+    gray_sum += tail_pixel<kUltraC>(k, im, kUltraC, y, x, y * w + x, v);
   }
   finish_gray(a, bi, gray_sum);
 }
 
-__device__ void hue_rotate(float r, float g, float b, float shift, float* o) {
+// _hue_planes at one pixel, with its two floor modulos (JAX's %) written
+// without fmodf, each the same bits (tests/test_torch_augment_cuda.py):
+//   * the red sector's hue x = (g - b) / delta lies in [-1, 1] (|g - b| <=
+//     max - min, each side rounded), where fmodf(x, 6) is x itself, so x % 6
+//     is x < 0 ? x + 6 : x;
+//   * y % 1 is y - floor(y), rounded once: for y < 0 that is the real
+//     number fmodf(y, 1) + 1 is, rounded once there too (fmodf is exact).
+//     At a negative integer y it gives +0 where fmodf's gives -0; the
+//     sector and f are the same for both.
+// One division for the three sectors' hue, and the sector's values picked
+// by selects: no divergent branch.
+__device__ __forceinline__ void hue_rotate(float r, float g, float b, float shift, float* o) {
   const float maxc = fmaxf(fmaxf(r, g), b);
   const float minc = fminf(fminf(r, g), b);
   const float v = maxc;
@@ -609,27 +840,23 @@ __device__ void hue_rotate(float r, float g, float b, float shift, float* o) {
   // ordering compares pick the max channel (not equality with maxc)
   const bool r_max = (r >= g) && (r >= b);
   const bool g_max = (g > r) && (g >= b);
-  float hh;
-  if (r_max) hh = floor_mod((g - b) / safe_delta, 6.0f);
-  else if (g_max) hh = (b - r) / safe_delta + 2.0f;
-  else hh = (r - g) / safe_delta + 4.0f;
+  const float x = (r_max ? g - b : (g_max ? b - r : r - g)) / safe_delta;
+  float hh = r_max ? (x < 0.0f ? x + 6.0f : x) : x + (g_max ? 2.0f : 4.0f);
   hh = hh / 6.0f;
   if (delta == 0.0f) hh = 0.0f;
-  hh = floor_mod(hh + shift, 1.0f);  // floor modulo: shift may be negative
+  const float y = hh + shift;  // floor modulo: shift may be negative
+  hh = y - floorf(y);
   const float h6 = hh * 6.0f;
   const float fi = floorf(h6);
   const float f = h6 - fi;
   const float pp = v * (1.0f - s);
   const float qq = v * (1.0f - s * f);
   const float tt = v * (1.0f - s * (1.0f - f));
-  switch ((int)fi % 6) {
-    case 0: o[0] = v; o[1] = tt; o[2] = pp; break;
-    case 1: o[0] = qq; o[1] = v; o[2] = pp; break;
-    case 2: o[0] = pp; o[1] = v; o[2] = tt; break;
-    case 3: o[0] = pp; o[1] = qq; o[2] = v; break;
-    case 4: o[0] = tt; o[1] = pp; o[2] = v; break;
-    default: o[0] = v; o[1] = pp; o[2] = qq; break;
-  }
+  int i = (int)fi;  // 0 .. 6: 6 when hh rounds up to 1, which is sector 0
+  if (i == 6) i = 0;
+  o[0] = (i == 0 || i == 5) ? v : (i == 1 ? qq : (i == 4 ? tt : pp));
+  o[1] = (i == 1 || i == 2) ? v : (i == 0 ? tt : (i == 3 ? qq : pp));
+  o[2] = (i == 3 || i == 4) ? v : (i == 2 ? tt : (i == 5 ? qq : pp));
 }
 
 __device__ __forceinline__ int reflect(int i, int n) {
@@ -638,75 +865,153 @@ __device__ __forceinline__ int reflect(int i, int n) {
   return min(max(i, 0), n - 1);  // rows of a ragged tile past the image: unused
 }
 
-// (c) contrast, saturation, hue, blur, shadow on a 32x32 tile + halo
+// (c) contrast, saturation, hue, blur, shadow on a 64x32 tile + halo.
+// kS2Threads = 4 x 68: a thread owns one halo column (its reflect-padded
+// source column fixed) and every 4th row of it, and one column segment of
+// the vertical pass per pass, so each phase divides evenly. vec: w % 4 == 0
+// and the output and plasma bases aligned, so a 4-pixel segment of a row
+// moves as one word.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) stage2(Args<T> a) {
-  __shared__ float s_in[3][kHalo][kHalo + 1];
-  __shared__ float s_v[3][kTile][kHalo + 1];
+__global__ void __launch_bounds__(kS2Threads, 4) stage2(Args<T> a, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* s_in = reinterpret_cast<float*>(smem_raw);  // [3][kS2HaloH][kS2Pitch]: the halo's colour
+  float* s_v = s_in + 3 * kS2HaloH * kS2Pitch;       // [3][kS2H][kS2Pitch]: the vertical pass
   const int bi = blockIdx.z;
-  const int h = a.h, w = a.w;
-  const int64_t hw = (int64_t)h * w;
+  const int h = a.h, w = a.w, hw = h * w;
   const float* sv = a.sv + (int64_t)bi * kScalars;
   const float* rgb = a.rgb + (int64_t)bi * 3 * hw;
-  const int y0 = blockIdx.y * kTile, x0 = blockIdx.x * kTile;
-  const int tid = threadIdx.y * kTile + threadIdx.x;
-  const float mean_gray = a.mean[bi];
+  const int y0 = blockIdx.y * kS2H, x0 = blockIdx.x * kS2W;
+  const int tid = threadIdx.x, col = tid % kS2HaloW, row0 = tid / kS2HaloW;
   const float f_c = sv[13], f_s = sv[14], f_h = sv[15];
-  for (int idx = tid; idx < kHalo * kHalo; idx += kThreads) {
-    const int ty = idx / kHalo, tx = idx % kHalo;
-    const int px = reflect(y0 + ty - 2, h) * w + reflect(x0 + tx - 2, w);
-    float r = rgb[px], g = rgb[hw + px], b = rgb[2 * hw + px];
-    r = clip01(f_c * r + (1.0f - f_c) * mean_gray);
-    g = clip01(f_c * g + (1.0f - f_c) * mean_gray);
-    b = clip01(f_c * b + (1.0f - f_c) * mean_gray);
-    const float gray = r * 0.299f + g * 0.587f + b * 0.114f;
-    r = clip01(f_s * r + (1.0f - f_s) * gray);
-    g = clip01(f_s * g + (1.0f - f_s) * gray);
-    b = clip01(f_s * b + (1.0f - f_s) * gray);
+  const float c_mean = (1.0f - f_c) * __ldg(a.mean + bi), s_keep = 1.0f - f_s;
+  // the halo inside the image (most tiles): no reflection
+  const bool inside = x0 >= 2 && y0 >= 2 && x0 + kS2W + 2 <= w && y0 + kS2H + 2 <= h;
+  const float* src_col = rgb + (inside ? x0 + col - 2 : reflect(x0 + col - 2, w));
+  const auto src_row = [&](int row) { return (inside ? y0 + row - 2 : reflect(y0 + row - 2, h)) * w; };
+
+  // 1. the colour of every halo pixel, once, two rows (4 apart) at a time:
+  // both rows' reads go out first, and the two colour chains interleave
+  const auto colour = [&](float* v) {
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) v[ch] = clip01(f_c * v[ch] + c_mean);
+    const float gray = v[0] * 0.299f + v[1] * 0.587f + v[2] * 0.114f;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) v[ch] = clip01(f_s * v[ch] + s_keep * gray);
     if (f_h != 0.0f) {  // the HSV round trip is not exact at shift 0: keep the input then
-      float o[3];
-      hue_rotate(r, g, b, f_h, o);
-      r = clip01(o[0]);
-      g = clip01(o[1]);
-      b = clip01(o[2]);
+      float hue[3];
+      hue_rotate(v[0], v[1], v[2], f_h, hue);
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) v[ch] = clip01(hue[ch]);
     }
-    s_in[0][ty][tx] = r;
-    s_in[1][ty][tx] = g;
-    s_in[2][ty][tx] = b;
+  };
+  const auto load_row = [&](int row, float* v) {
+    const int o = src_row(row);
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) v[ch] = ldg(src_col + ch * hw + o);
+  };
+  for (int row = row0; row < kS2HaloH; row += 8) {
+    const bool two = row + 4 < kS2HaloH;
+    float v[3], u[3];
+    load_row(row, v);
+    load_row(two ? row + 4 : row, u);
+    colour(v);
+    colour(u);
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      s_in[(ch * kS2HaloH + row) * kS2Pitch + col] = v[ch];
+      if (two) s_in[(ch * kS2HaloH + row + 4) * kS2Pitch + col] = u[ch];
+    }
   }
   __syncthreads();
   const bool blur_on = sv[16] > 0.5f;
-  const float taps[5] = {sv[17], sv[18], sv[19], sv[20], sv[21]};
-  if (blur_on) {  // vertical pass over the tile's rows and the halo's columns
-    for (int idx = tid; idx < kTile * kHalo; idx += kThreads) {
-      const int ty = idx / kHalo, tx = idx % kHalo;
+  float taps[5];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) taps[k] = sv[17 + k];
+  if (blur_on) {  // 2. vertical pass: column segments of 4 output rows
+    for (int seg = row0; seg < kS2H / 4; seg += 4) {
+#pragma unroll
       for (int ch = 0; ch < 3; ++ch) {
-        float acc = taps[0] * s_in[ch][ty][tx];
-        for (int k = 1; k < 5; ++k) acc = acc + taps[k] * s_in[ch][ty + k][tx];
-        s_v[ch][ty][tx] = acc;
+        const float* src = s_in + (ch * kS2HaloH + 4 * seg) * kS2Pitch + col;
+        float in[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) in[k] = src[k * kS2Pitch];
+        float* dst = s_v + (ch * kS2H + 4 * seg) * kS2Pitch + col;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          float acc = taps[0] * in[k];
+#pragma unroll
+          for (int t = 1; t < 5; ++t) acc = acc + taps[t] * in[k + t];
+          dst[k * kS2Pitch] = acc;
+        }
       }
     }
+    __syncthreads();
   }
-  __syncthreads();
+  // 3. horizontal pass, shadow, store: row segments of 4 outputs (two
+  // 16-byte reads of s_v cover their 8 taps)
   const float intensity = sv[22], quantity = sv[23];
   const __nv_bfloat16* plasma = a.plasma + (int64_t)bi * hw;
   T* out = a.out + (int64_t)bi * a.c * hw;
-  for (int ty = threadIdx.y; ty < kTile; ty += kTileRows) {
-    const int y = y0 + ty, x = x0 + threadIdx.x;
+  for (int idx = tid; idx < kS2H * (kS2W / 4); idx += kS2Threads) {
+    const int ty = idx / (kS2W / 4), tx = 4 * (idx % (kS2W / 4));  // powers of two: shifts
+    const int y = y0 + ty, x = x0 + tx;
     if (y >= h || x >= w) continue;
     const int px = y * w + x;
-    const float delta_sh = intensity * (ld(plasma[px]) < quantity ? 1.0f : 0.0f);
+    float sh[4];
+    if (vec) {
+      ldg4(plasma + px, sh);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sh[i] = x + i < w ? ldg(plasma + px + i) : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sh[i] = intensity * (sh[i] < quantity ? 1.0f : 0.0f);
+#pragma unroll
     for (int ch = 0; ch < 3; ++ch) {
-      float val;
+      float v[4];
       if (blur_on) {
-        val = taps[0] * s_v[ch][ty][threadIdx.x];
-        for (int k = 1; k < 5; ++k) val = val + taps[k] * s_v[ch][ty][threadIdx.x + k];
+        const float* src = s_v + (ch * kS2H + ty) * kS2Pitch + tx;
+        float in[8];
+        load4(src, in);
+        load4(src + 4, in + 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float val = taps[0] * in[i];
+#pragma unroll
+          for (int t = 1; t < 5; ++t) val = val + taps[t] * in[i + t];
+          v[i] = val;
+        }
       } else {
-        val = s_in[ch][ty + 2][threadIdx.x + 2];
+        const float* src = s_in + (ch * kS2HaloH + ty + 2) * kS2Pitch + tx + 2;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[i] = src[i];
       }
-      out[ch * hw + px] = st<T>(clip01(val + delta_sh));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = clip01(v[i] + sh[i]);
+      if (vec) {
+        store4(out + ch * hw + px, v);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (x + i < w) out[ch * hw + px + i] = st<T>(v[i]);
+      }
     }
   }
+}
+
+// Stage 1 of the chain and the warp at C = NC (kAnyC: 6-8 at run time).
+template <typename T, int NC>
+int launch_stage1(int mode, const Args<T>& a, dim3 grid, dim3 block, cudaStream_t s) {
+  if (mode == 0) {
+    const bool vec = a.w % 4 == 0 && aligned4<T>(a.img) && aligned4<T>(a.out) && aligned4<__nv_bfloat16>(a.fields);
+    stage1_chain<T, NC><<<grid, block, 0, s>>>(a, vec);
+  } else {
+    const int box_bytes = a.c * kBoxPix * (int)sizeof(T);
+    const int err = (int)cudaFuncSetAttribute(stage1_warp<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, box_bytes);
+    if (err) return err;
+    stage1_warp<T, NC><<<grid, block, box_bytes, s>>>(a);
+  }
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -715,7 +1020,7 @@ int run(int mode, const void* img, void* out, const void* sv, const void* fields
         int w, float lb, float ub, void* stream) {
   if (b == 0 || h == 0 || w == 0) return 0;
   if (c < 3 || c > kMaxC || (mode == 2 && c != kUltraC) || mode < 0 || mode > 2 || b > 65535 ||
-      (int64_t)h * w >= (1LL << 31))
+      (int64_t)c * h * w >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const Scratch lay = scratch_layout(b, h, w);
   char* base = (char*)scratch;
@@ -734,18 +1039,25 @@ int run(int mode, const void* img, void* out, const void* sv, const void* fields
     if ((err = (int)cudaGetLastError())) return err;
   }
   const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile, b), block(kTile, kTileRows);
-  if (mode == 0) {
-    stage1<T, 0><<<grid, block, 0, s>>>(a);
-  } else if (mode == 1) {
-    stage1<T, 1><<<grid, block, 0, s>>>(a);
-  } else {
+  if (mode == 2) {
     const int box_bytes = kUltraC * kBoxPix * (int)sizeof(T);
     err = (int)cudaFuncSetAttribute(stage1_ultra<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, box_bytes);
     if (err) return err;
     stage1_ultra<T><<<grid, block, box_bytes, s>>>(a);
+    err = (int)cudaGetLastError();
+  } else if (c == 3) {
+    err = launch_stage1<T, 3>(mode, a, grid, block, s);
+  } else if (c == 4) {
+    err = launch_stage1<T, 4>(mode, a, grid, block, s);
+  } else if (c == 5) {
+    err = launch_stage1<T, 5>(mode, a, grid, block, s);
+  } else {
+    err = launch_stage1<T, kAnyC>(mode, a, grid, block, s);
   }
-  if ((err = (int)cudaGetLastError())) return err;
-  stage2<T><<<grid, block, 0, s>>>(a);
+  if (err) return err;
+  if ((err = (int)cudaFuncSetAttribute(stage2<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kS2Smem))) return err;
+  const bool vec2 = w % 4 == 0 && aligned4<T>(out) && aligned4<__nv_bfloat16>(plasma);
+  stage2<T><<<dim3((w + kS2W - 1) / kS2W, (h + kS2H - 1) / kS2H, b), kS2Threads, kS2Smem, s>>>(a, vec2);
   return (int)cudaGetLastError();
 }
 
@@ -784,7 +1096,7 @@ warp_two_pass(const float* __restrict__ img, float* __restrict__ out, const floa
         if (k < nc) v[k] = src[k * hw + o];
     };
     if (k0 > 0) __syncthreads();  // every tap of the last pass has been read
-    stage_box<kWarpC>(box, bx, swap, tid, nc, source);
+    stage_box<kWarpC, false>(box, bx, swap, tid, nc, source);
     __syncthreads();
     for (int y = y_begin; y < y_end && x < w; y += kTileRows) {
       const Taps tp = warp_taps(i00, i01, t0, p, q, r, (float)y, (float)x, h, w);

@@ -74,7 +74,7 @@ def _warp_setup(h=S, w=S):
 
 
 @pytest.mark.parametrize("storage", ["f32", "bf16"])
-@pytest.mark.parametrize("c", [3, 4, 5])
+@pytest.mark.parametrize("c", [3, 4, 5, 6])
 def test_fused_apply_plain_matches_jax(c, storage):
     jdt, tdt = (jnp.float32, torch.float32) if storage == "f32" else (jnp.bfloat16, torch.bfloat16)
     x = _images(c, seed=c)
@@ -86,7 +86,7 @@ def test_fused_apply_plain_matches_jax(c, storage):
 
 
 @pytest.mark.parametrize("storage", ["f32", "bf16"])
-@pytest.mark.parametrize("c", [3, 4, 5])
+@pytest.mark.parametrize("c", [3, 4, 5, 6])
 def test_fused_warp_apply_plain_matches_jax(c, storage):
     jdt, tdt = (jnp.float32, torch.float32) if storage == "f32" else (jnp.bfloat16, torch.bfloat16)
     x = _images(c, seed=10 + c)
