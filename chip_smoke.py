@@ -64,7 +64,20 @@ non-zero exit:
      frame's time goes (detector alone, smoother alone, device busy share by
      torch.profiler); the default LM-8 smoother on a few frames; the detector
      alone at batch 256; and the CUDA pipeline against the CPU pipeline on a
-     small f32 configuration.
+     small f32 configuration;
+  6. the train loop at the default TrainConfig: a decoded synthetic split of
+     1,024 train and 256 val rows at 256x256 (numpy alone, in a temporary
+     directory under outputs/); train() on the host loader, 2 epochs with a
+     save each and the EMA, #6, #1 and #2 counted inside the call (#6 and
+     #2 once per step, #1 also once per val batch); the host loader's
+     batch alone (materialise, prepare, copy); one epoch with a save and a
+     traced window (train()'s profile_dir: the device busy share), then the
+     second resumed, against a straight run, under cuDNN's deterministic
+     algorithms: run id, epoch, LR, scheduler memory and AdamW step equal,
+     losses, params and EMA bit for bit; the device-resident split, the
+     epoch in one call and step by step; a half-size subset redrawn every
+     epoch. Each path's img/s per epoch. The split and the runs'
+     directories are deleted.
 
 Prints each phase's wall time, the card line, then one JSON line describing
 each kernel, then, as the last line, {"ok": true, "device": {...}}.
@@ -73,6 +86,7 @@ each kernel, then, as the last line, {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -187,16 +201,20 @@ def log_split(label: str, fn, calls: int = 5, host: bool = False) -> None:
             + ", ".join(f"{e.key} {e.self_cpu_time_total / calls:.3f}" for e in cpu[:6]))
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def phase_device():
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: this smoke test needs a CUDA card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(card_line(), flush=True)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
 
@@ -1320,6 +1338,242 @@ def phase_serving():
     return launches
 
 
+LOOP_ROWS, LOOP_VAL_ROWS = 1024, 256  # the train loop's decoded split: 4 steps an epoch at batch 256
+
+
+def _logged(run_id: str, key: str) -> list:
+    """One metric of a run's metrics.jsonl, in order."""
+    import os
+
+    from perseus_tpu_torch import ROOT
+
+    with open(os.path.join(ROOT, "outputs", "runs", run_id, "metrics.jsonl")) as f:
+        return [r[key] for r in map(json.loads, f) if key in r]
+
+
+def _counted_train(label, cfg, run_ids, expect_steps, val_batches):
+    """train(cfg) on the card with every kernel's launches counted over
+    exactly that call: #6, #2 one per train step, #1 one per train step and
+    one per val batch, the others none; finite losses, params and EMA; its
+    img/s per epoch (the run's own log)."""
+    import torch
+
+    from perseus_tpu_torch.train import train
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    result = train.train(cfg)
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    run_ids.append(result["run_id"])
+    expect = {"max_pool_3x3_s2": expect_steps + val_batches, "max_pool_3x3_s2_backward": expect_steps,
+              "fused_ultra_apply": expect_steps, "fused_apply": 0, "fused_warp_apply": 0, "warp_affine_two_pass": 0}
+    if counts != expect:
+        raise AssertionError(f"{label}: launches {counts} inside train(), expected {expect}")
+    state = result["state"]
+    tensors = list(state.params.values()) + list(state.batch_stats.values())
+    if result["ema"] is not None:
+        tensors += list(result["ema"]["params"].values())
+    if not (all(t.is_cuda and bool(torch.isfinite(t).all()) for t in tensors)
+            and all(map(math.isfinite, result["train_loss_history"] + [result["final_val_loss"]]))):
+        raise AssertionError(f"{label}: non-finite or off-card results {result['train_loss_history']}")
+    rates, times = _logged(result["run_id"], "train_images_per_sec"), _logged(result["run_id"], "epoch_time_s")
+    n_epochs = len(result["train_loss_history"])
+    overall = expect_steps * cfg.batch_size / sum(times)
+    log(f"{label}: {n_epochs} epochs, {expect_steps} steps in {wall:.3f} s of train(); img/s per epoch "
+        f"{[round(r, 1) for r in rates]} (epoch times {[round(t, 4) for t in times]} s), over its epochs "
+        f"{overall:.1f} img/s; train losses {result['train_loss_history']}, "
+        f"val {result['final_val_loss']:.6f}; launches {counts}")
+    return result, times, overall
+
+
+def _trace_kernels(trace_dir: str) -> tuple[float, float, int]:
+    """(kernel ms, memcpy ms, kernel launches) in the chrome trace train()
+    wrote under ``trace_dir``."""
+    import os
+
+    (name,) = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    with open(os.path.join(trace_dir, name)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    memcpy = [e for e in events if e.get("cat") == "gpu_memcpy"]
+    return sum(e["dur"] for e in kernels) / 1e3, sum(e["dur"] for e in memcpy) / 1e3, len(kernels)
+
+
+def host_batch_times(cfg, batches: int = 5) -> dict:
+    """The host loader's work for one batch alone, on the host clock, median
+    over ``batches`` batches after one warm-up: materialise (the
+    dataset's rows from the memory-mapped decoded split), prepare
+    (``_prepare_aug_batch`` into a pinned buffer) and copy (pinned -> card,
+    synchronised)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from perseus_tpu_torch.data.dataset import PrunedKeypointDataset
+    from perseus_tpu_torch.train import train
+
+    ds = PrunedKeypointDataset(cfg.dataset_config, train=True)
+    order = np.random.default_rng(1).permutation(len(ds))
+    c = train._aug_channels(cfg.in_channels, cfg.augmentation_config.random_transplantation_with_depth)
+    buf = torch.empty((cfg.batch_size, c, ds.H, ds.W), pin_memory=True)
+    parts = {"materialise": [], "prepare": [], "copy": []}
+    for i in range(batches + 1):
+        idx = order[(i * cfg.batch_size) % len(ds):][: cfg.batch_size]
+        t0 = time.perf_counter()
+        batch = ds.batch(idx)
+        t1 = time.perf_counter()
+        train._prepare_aug_batch(batch, cfg.in_channels, True, out=buf.numpy())
+        t2 = time.perf_counter()
+        buf.to("cuda", non_blocking=True)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if i:
+            for k, t in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+                parts[k].append(t * 1e3)
+    out = {k: statistics.median(v) for k, v in parts.items()}
+    gb = buf.numel() * 4 / 1e9
+    log(f"host loader, one batch alone ({cfg.batch_size} rows, {gb:.3f} GB f32), median of {batches} (host clock): "
+        f"materialise {out['materialise']:.3f} ms, prepare {out['prepare']:.3f} ms, copy to the card "
+        f"{out['copy']:.3f} ms ({gb / out['copy'] * 1e3:.2f} GB/s); total {sum(out.values()):.3f} ms")
+    return out
+
+
+def phase_train_loop():
+    """The trainer's main path at the default TrainConfig over a decoded
+    synthetic split (LOOP_ROWS train, LOOP_VAL_ROWS val rows at 256x256):
+    train() on the host loader (2 epochs, a save every epoch, the EMA), its
+    launches of #6, #1 and #2 counted inside the call; resume (one epoch and
+    a save, then the second epoch resumed) against the straight run, both
+    under cuDNN's deterministic algorithms, bit for bit; the
+    device-resident split with the epoch in one call and step by step; the
+    row subset redrawn every epoch. The split and the runs' directories are
+    deleted at the end."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from perseus_tpu_torch import ROOT
+    from perseus_tpu_torch.data.dataset import KeypointDatasetConfig
+    from perseus_tpu_torch.data.synthetic import generate_synthetic_decoded_split
+    from perseus_tpu_torch.train import checkpoint as ckpt
+    from perseus_tpu_torch.train import train
+    from perseus_tpu_torch.train.config import TrainConfig
+
+    base = TrainConfig()
+    os.makedirs(os.path.join(ROOT, "outputs"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="smoke_train_loop_", dir=os.path.join(ROOT, "outputs"))
+    run_ids = []
+    try:
+        t0 = time.perf_counter()
+        split = generate_synthetic_decoded_split(
+            os.path.join(tmp, "split"), LOOP_ROWS, LOOP_VAL_ROWS, base.input_resolution, base.input_resolution,
+            base.n_keypoints, seed=base.random_seed,
+        )
+        size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(split) for f in fs)
+        log(f"train loop: decoded split of {LOOP_ROWS} + {LOOP_VAL_ROWS} rows at {base.input_resolution}^2 "
+            f"({size / 1e9:.3f} GB on disk) written in {time.perf_counter() - t0:.3f} s; h5py and PIL imported: "
+            f"{'h5py' in sys.modules}, {'PIL' in sys.modules}")
+        cfg = dataclasses.replace(base, dataset_config=KeypointDatasetConfig(dataset_path=split), n_epochs=2,
+                                  save_epochs=1, ema_decay=0.9)
+        steps = LOOP_ROWS // cfg.batch_size
+        val_batches = -(-LOOP_VAL_ROWS // cfg.batch_size)
+
+        host_times = host_batch_times(cfg)
+        _, epoch_times, host_rate = _counted_train("train loop, host loader", cfg, run_ids, 2 * steps, 2 * val_batches)
+
+        # resume against the straight run, cuDNN deterministic; the first
+        # run also traces steps 1-2 (train()'s profile_dir)
+        prof_dir = os.path.join(tmp, "trace")
+        old_det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            straight = train.train(cfg)
+            run_ids.append(straight["run_id"])
+            first = train.train(dataclasses.replace(cfg, n_epochs=1, profile_dir=prof_dir, profile_steps=2))
+            run_ids.append(first["run_id"])
+            run_dir = os.path.join(ROOT, "outputs", "models", first["run_id"])
+            saved = ckpt.restore_train_state(run_dir)
+            resumed = train.train(dataclasses.replace(cfg, resume=run_dir))
+        finally:
+            torch.backends.cudnn.deterministic = old_det
+        final = ckpt.restore_train_state(os.path.join(ROOT, "outputs", "models", straight["run_id"]))
+        resumed_saved = ckpt.restore_train_state(run_dir)
+        exact = {
+            "run id": (resumed["run_id"], first["run_id"]),
+            "epoch saved": (saved["epoch"], 0),
+            "epoch after resume": (resumed_saved["epoch"], final["epoch"]),
+            "lr": (resumed_saved["lr"], final["lr"]),
+            "sched_best": (resumed_saved["sched_best"], final["sched_best"]),
+            "sched_num_bad": (resumed_saved["sched_num_bad"], final["sched_num_bad"]),
+            "AdamW step": (resumed["state"].opt_state.step, straight["state"].opt_state.step),
+        }
+        bad = {k: v for k, v in exact.items() if v[0] != v[1]}
+        loss_diff = [abs(a - b) for a, b in zip(resumed["train_loss_history"], straight["train_loss_history"][1:])]
+        param_diff = max((v - straight["state"].params[k]).abs().max().item() for k, v in resumed["state"].params.items())
+        ema_diff = max((v - straight["ema"]["params"][k]).abs().max().item() for k, v in resumed["ema"]["params"].items())
+        log(f"train loop resume (cuDNN deterministic): {exact}; resumed epoch's loss - straight's {loss_diff}, val "
+            f"{resumed['final_val_loss'] - straight['final_val_loss']}; params max abs diff {param_diff}, EMA {ema_diff}")
+        # tolerance 0: with cuDNN's deterministic algorithms every kernel of
+        # the step is deterministic, and the loop's draws and order depend on
+        # (seed, step) and (seed, epoch) alone
+        if bad or any(loss_diff) or resumed["final_val_loss"] != straight["final_val_loss"] or param_diff or ema_diff:
+            raise AssertionError(f"train loop: the resumed run parts from the straight one: {bad}")
+        kernel_ms, memcpy_ms, launches = _trace_kernels(prof_dir)
+        per_step = kernel_ms / 2
+        busy = [per_step * steps / (t * 1e3) for t in epoch_times]
+        log(f"train loop host loader, traced steps 1-2 (torch.profiler, train()'s profile_dir): kernels "
+            f"{per_step:.4f} ms/step in {launches / 2:g} launches, host->card copies {memcpy_ms / 2:.4f} ms/step; "
+            f"device busy share of the untraced epochs {[round(b, 6) for b in busy]} (kernels x {steps} steps / "
+            f"the epoch's wall); host batch alone {sum(host_times.values()):.3f} ms against kernels "
+            f"{per_step:.4f} ms a step")
+
+        # the device-resident split: the epoch in one call, step by step
+        dd = dataclasses.replace(cfg, data_on_device=True, n_epochs=1, ema_decay=0.0)
+        scan, _, scan_rate = _counted_train("train loop, device-resident split, epoch in one call", dd, run_ids,
+                                            steps, val_batches)
+        per, _, per_rate = _counted_train("train loop, device-resident split, step by step",
+                                          dataclasses.replace(dd, device_data_epoch_scan=False), run_ids, steps,
+                                          val_batches)
+        log(f"train loop device-resident: epoch call's losses - step by step's "
+            f"{[a - b for a, b in zip(scan['train_loss_history'], per['train_loss_history'])]}")
+
+        # a subset of half the rows, redrawn every epoch: freed, then uploaded anew
+        uploads = []
+        real = train._device_dataset
+
+        def upload(*args, **kw):
+            t = time.perf_counter()
+            out = real(*args, **kw)
+            torch.cuda.synchronize()
+            uploads.append((kw.get("subset"), time.perf_counter() - t))
+            return out
+
+        sub = dataclasses.replace(dd, n_epochs=2, device_data_rows=LOOP_ROWS // 2, device_data_refresh_epochs=1)
+        with mock.patch.object(train, "_device_dataset", upload):
+            _counted_train("train loop, device-resident subset refreshed each epoch", sub, run_ids,
+                           2 * (LOOP_ROWS // 2 // cfg.batch_size), 2 * val_batches)
+        drawn = [s for s, _ in uploads if s is not None]
+        if len(drawn) != 2 or len(drawn[0]) != LOOP_ROWS // 2 or (drawn[0] == drawn[1]).all():
+            raise AssertionError(f"train loop: subset uploads {[None if s is None else len(s) for s in drawn]}")
+        log(f"train loop subset refresh: {len(uploads)} uploads (train, val, train), decode + upload "
+            f"{[round(t, 3) for _, t in uploads]} s; the two subsets share {len(set(drawn[0]) & set(drawn[1]))} rows")
+        log(f"train loop on {card_line()}: train() img/s over its epochs: host loader {host_rate:.1f}, "
+            f"device-resident epoch call {scan_rate:.1f}, step by step {per_rate:.1f}; host loader batch alone "
+            f"{sum(host_times.values()):.3f} ms ({', '.join(f'{k} {v:.3f}' for k, v in host_times.items())}) "
+            f"against kernels {per_step:.4f} ms a step; device busy share of the host loader's epochs "
+            f"{[round(b, 6) for b in busy]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        for run_id in run_ids:
+            for kind in ("models", "runs"):
+                shutil.rmtree(os.path.join(ROOT, "outputs", kind, run_id), ignore_errors=True)
+
+
 def _entry(name, source, replaces, launches, err, timing, library_ms):
     t_kernel, t_plain, bound, by = timing
     return {
@@ -1358,6 +1612,7 @@ def main() -> int:
         train_counts, branch_counts, _ = run("train", phase_train)
         unfused_counts, _ = run("train unfused (device-resident split)", phase_train_unfused)
         serving_launches = run("serving", phase_serving)
+        run("train loop", phase_train_loop)
     except Exception as exc:  # report which phase failed, with its traceback
         import traceback
 

@@ -27,6 +27,7 @@ import torch
 __all__ = [
     "from_jax_params",
     "from_jax_folded",
+    "normalize_reference_sd",
     "load_reference_pth",
     "load_model",
     "convert_opt_state",
@@ -59,10 +60,9 @@ def from_jax_folded(folded: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]
     return {k: _to_torch_layout(k, v) for k, v in folded.items()}
 
 
-def load_reference_pth(path: str) -> dict[str, torch.Tensor]:
-    """A reference-layout ``.pth`` state dict -> the port's f32 state dict:
+def normalize_reference_sd(raw: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """A reference-layout state dict -> the port's f32 state dict:
     ``module.``/``resnet.`` prefixes stripped, ``num_batches_tracked`` dropped."""
-    raw = torch.load(path, map_location="cpu", weights_only=True)
     out = {}
     for key, value in raw.items():
         k = key.removeprefix("module.").removeprefix("resnet.")
@@ -71,15 +71,26 @@ def load_reference_pth(path: str) -> dict[str, torch.Tensor]:
     return out
 
 
+def load_reference_pth(path: str) -> dict[str, torch.Tensor]:
+    """A reference-layout ``.pth`` state dict -> the port's f32 state dict
+    (:func:`normalize_reference_sd`)."""
+    return normalize_reference_sd(torch.load(path, map_location="cpu", weights_only=True))
+
+
 def load_model(path: str) -> dict[str, torch.Tensor]:
-    """Loads a model state dict from a reference-layout ``.pth``.
+    """Loads a model state dict from a ``.pth``: a reference-layout
+    checkpoint, or a bare torchvision resnet18 classifier, which
+    ``models/pretrained.py`` adapts (backbone kept, conv1 and fc fresh).
 
     The JAX package's native checkpoints are orbax directories, which need
     JAX's orbax to read; export one to ``.pth`` with
-    ``perseus_tpu.train.checkpoint.export_reference_pth`` first.
+    ``perseus_tpu.train.checkpoint.export_reference_pth`` first. The port's
+    own checkpoint directories load through ``train/checkpoint.py::load_model``.
     """
     if path.endswith((".pth", ".pt")):
-        return load_reference_pth(path)
+        from perseus_tpu_torch.models.pretrained import load_pretrained_checkpoint
+
+        return load_pretrained_checkpoint(path)
     raise ValueError(
         f"{path!r} is not a .pth/.pt checkpoint; orbax checkpoint directories are not read by "
         "the port (export one with perseus_tpu.train.checkpoint.export_reference_pth)"

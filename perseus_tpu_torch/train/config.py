@@ -1,23 +1,16 @@
-"""Training configuration: the JAX package's ``TrainConfig`` (every field,
-the same defaults) and a copy of its ``KeypointDatasetConfig``.
+"""Training configuration: the JAX package's ``TrainConfig``, every field
+with the same default, so a config (or a command line) moves between the two
+packages unchanged; ``KeypointDatasetConfig`` is
+:mod:`perseus_tpu_torch.data.dataset`'s.
 
-This slice of the port runs the train step (``train/train.py``:
-``init_state``, ``make_optimizer``, ``make_train_step``, ``make_eval_step``)
-on in-memory batches. Fields that only the JAX package's epoch loop over the
-HDF5 dataset reads are kept, with their defaults, so a config moves between
-the two packages unchanged; this slice does not read them: ``n_epochs``,
-``val_epochs``, ``print_epochs``, ``save_epochs``, ``dataset_config``,
-``multigpu``, ``wandb_project``, ``resume``, ``profile_dir``,
-``profile_steps``, ``cache_dataset``, ``rng_impl``, ``data_on_device``,
-``device_data_dtype``, ``device_data_rows``, ``device_data_refresh_epochs``,
-``device_data_epoch_scan``, ``plateau_*`` and ``min_learning_rate`` (read
-by the caller's ``PlateauScheduler``), ``distributed``,
-``coordinator_address``, ``num_processes``, ``process_id``,
-``oversample_*``, ``close_seg_threshold``, ``sample_weights_path`` and
-``ema_decay``. Checkpoint loading is not ported yet: ``init_state`` refuses
-a config that sets ``init_checkpoint`` or ``init_backbone`` (and so never
-reads ``init_head``). The comments below are the JAX package's, and name its
-hardware where it had one.
+``train/train.py::train`` reads every field but these, which the port takes
+and does not read: ``multigpu`` (one card; data parallelism is a later
+slice, which ``distributed`` and ``coordinator_address`` raise for, and
+``num_processes`` and ``process_id`` belong to), ``rng_impl`` (the port's
+per-step generators are ``step_generator(random_seed, step)``) and
+``dataset_config.native_decode`` / ``decode_threads`` / ``lazy``. The
+comments below are the JAX package's, and name its hardware where it had
+one.
 """
 
 from __future__ import annotations
@@ -25,19 +18,9 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 from perseus_tpu_torch.augment.pipeline import AugmentationConfig
+from perseus_tpu_torch.data.dataset import KeypointDatasetConfig
 
 __all__ = ["KeypointDatasetConfig", "TrainConfig"]
-
-
-@dataclass(frozen=True)
-class KeypointDatasetConfig:
-    """The keypoint dataset's configuration (the JAX package's fields and
-    defaults; the port does not read the HDF5 dataset yet)."""
-
-    dataset_path: str = "data/pruned_dataset/pruned.hdf5"
-    lazy: bool = True
-    native_decode: bool = True
-    decode_threads: int = 0  # 0 = one per CPU
 
 
 @dataclass(frozen=True)

@@ -1,6 +1,6 @@
-"""The detector's train step in PyTorch.
+"""The detector's trainer in PyTorch.
 
-Port of the step of ``perseus_tpu/train/train.py``: augmentation
+Port of ``perseus_tpu/train/train.py``. The step: augmentation
 (:class:`~perseus_tpu_torch.augment.pipeline.KeypointAugmentation`, the
 fused CUDA kernels on the card) -> ResNet-18 in train mode
 (``models/resnet.py::keypoint_cnn_apply``, bf16 convs under ``cfg.amp``, the
@@ -8,32 +8,41 @@ stem maxpool's forward and gradient kernels) -> SmoothL1 with the
 out-of-frame, spread and example-weight options of ``step_core`` ->
 global-norm clip -> AdamW, as optax's ``clip_by_global_norm`` + ``adamw``.
 
-Entry points: :func:`init_state`, :func:`make_optimizer`,
+Entry points: :func:`train` (and :func:`main`, its command line), the loop
+over a pruned dataset (``data/dataset.py``: the HDF5 + image files, or a
+decoded split) with eval feeding the :class:`PlateauScheduler`, an epoch
+EMA, checkpoints every ``save_epochs`` and exact ``resume``
+(``train/checkpoint.py``); its parts :func:`init_state` (random, or from
+``init_checkpoint`` / ``init_backbone``), :func:`make_optimizer`,
 :func:`make_train_step` (:func:`make_loss_and_grads` and the optimizer),
-:func:`make_eval_step`; and the trainer's device-resident-data
-configuration (``cfg.data_on_device``), one card: a split held on the
-device, each step gathering its batch by an index tensor
+:func:`make_eval_step`; and the device-resident-data configuration
+(``cfg.data_on_device``), one card: the split decoded onto the device
+(:func:`_device_dataset`), each step gathering its batch by an index tensor
 (:func:`make_device_data_train_step`), a whole epoch in one call
 (:func:`make_device_data_epoch_fn`) and the eval step over a val split
 (:func:`make_device_data_eval_step`, batches from
 :func:`eval_index_batches`). The state is functional, as in JAX: a step
-returns a new :class:`TrainState` and leaves its input unchanged. The
-``train()`` loop over the HDF5 dataset (and filling the split from it),
-checkpoints, EMA and data parallelism are not ported yet.
+returns a new :class:`TrainState` and leaves its input unchanged. Data
+parallelism (``cfg.distributed``) is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from perseus_tpu_torch import resolve_device
+from perseus_tpu_torch import ROOT, resolve_device
 from perseus_tpu_torch.augment.pipeline import KeypointAugmentation
+from perseus_tpu_torch.data.dataset import PrefetchingLoader, PrunedKeypointDataset
 from perseus_tpu_torch.models import resnet
+from perseus_tpu_torch.train import checkpoint as ckpt
 from perseus_tpu_torch.train.config import TrainConfig
+from perseus_tpu_torch.utils import logging as ptlog
 
 __all__ = [
     "AdamWState",
@@ -52,6 +61,9 @@ __all__ = [
     "make_device_data_epoch_fn",
     "make_device_data_eval_step",
     "eval_index_batches",
+    "make_sample_weights",
+    "train",
+    "main",
 ]
 
 
@@ -183,11 +195,18 @@ def set_learning_rate(opt_state: AdamWState, lr: float) -> AdamWState:
     return dataclasses.replace(opt_state, learning_rate=float(lr))
 
 
-def _prepare_aug_batch(batch: dict, in_channels: int, use_transplant: bool) -> np.ndarray:
+def _aug_channels(in_channels: int, use_transplant: bool) -> int:
+    """The channel count :func:`_prepare_aug_batch` stacks."""
+    extra = (in_channels == 3) + 1 if use_transplant and in_channels < 5 else 0
+    return 3 + (in_channels >= 4) + extra
+
+
+def _prepare_aug_batch(batch: dict, in_channels: int, use_transplant: bool, out: np.ndarray | None = None) -> np.ndarray:
     """Stacks RGB (+ depth) (+ seg) of a host batch (NHWC ``image``, (B, H,
     W) ``depth_image`` and ``segmentation_image``) into the (B, C, H, W)
     f32 augmentation input: the channels of the JAX package's
-    ``_prepare_aug_batch``, in the port's layout."""
+    ``_prepare_aug_batch``, in the port's layout. With ``out`` (f32, C =
+    :func:`_aug_channels`), written there."""
     parts = [np.moveaxis(np.asarray(batch["image"]), -1, 1)]
     if in_channels >= 4:
         parts.append(np.asarray(batch["depth_image"])[:, None])
@@ -195,6 +214,8 @@ def _prepare_aug_batch(batch: dict, in_channels: int, use_transplant: bool) -> n
         if in_channels == 3:
             parts.append(np.asarray(batch["depth_image"])[:, None])
         parts.append(np.asarray(batch["segmentation_image"])[:, None])
+    if out is not None:
+        return np.concatenate(parts, axis=1, out=out)
     return np.ascontiguousarray(np.concatenate(parts, axis=1, dtype=np.float32))
 
 
@@ -204,20 +225,30 @@ def init_state(
     device: str | torch.device | None = "cuda",
     state_dict: dict[str, torch.Tensor] | None = None,
 ) -> TrainState:
-    """The initial train state on ``device``: from ``state_dict`` (e.g.
-    ``convert.from_jax_params`` of JAX parameters) when given, else a random
-    init drawn from ``cfg.random_seed`` by an explicit generator. A fresh
-    optimizer state. Loading ``cfg.init_checkpoint`` / ``cfg.init_backbone``
-    is not ported yet, and a config that sets either is refused."""
-    if cfg.init_checkpoint or cfg.init_backbone:
-        raise NotImplementedError("init_state: init_checkpoint / init_backbone loading is not ported yet")
+    """The initial train state on ``device``, with a fresh optimizer state.
+    The model comes from ``state_dict`` (e.g. ``convert.from_jax_params`` of
+    JAX parameters) when given; else from ``cfg.init_checkpoint`` (a port
+    checkpoint directory or a ``.pth``: params and batch stats); else a
+    random init drawn from ``cfg.random_seed`` by an explicit generator,
+    over which ``cfg.init_backbone``'s checkpoint copies its params (all but
+    the ``fc.`` head, which ``cfg.init_head`` adds; a shape mismatch
+    raises) and its batch stats."""
     dev = resolve_device(device)
+    if state_dict is None and cfg.init_checkpoint:
+        state_dict = ckpt.load_model(cfg.init_checkpoint)
     if state_dict is None:
         model = resnet.KeypointCNN(
             cfg.n_keypoints, cfg.in_channels, head=cfg.head, feat_hw=cfg.input_resolution // 32,
             device="cpu", generator=torch.Generator().manual_seed(cfg.random_seed),
         )
         state_dict = {k: v.detach() for k, v in model.state_dict().items()}
+        if cfg.init_backbone:
+            for k, v in ckpt.load_model(cfg.init_backbone).items():
+                if k not in state_dict or not (_is_stat(k) or cfg.init_head or not k.startswith("fc.")):
+                    continue
+                if not _is_stat(k) and state_dict[k].shape != v.shape:
+                    raise ValueError(f"init_backbone shape mismatch at {k}: {tuple(v.shape)} vs {tuple(state_dict[k].shape)}")
+                state_dict[k] = v
     params = {k: v.to(dev, torch.float32).clone() for k, v in state_dict.items() if not _is_stat(k)}
     stats = {k: v.to(dev, torch.float32).clone() for k, v in state_dict.items() if _is_stat(k)}
     return TrainState(params, stats, optimizer.init(params))
@@ -409,3 +440,423 @@ def eval_index_batches(n_rows: int, batch_size: int):
         idx[:length] = np.arange(start, start + length)
         mask[:length] = 1.0
         yield idx, mask
+
+
+@torch.no_grad()
+def _ema_apply(ema, snap, decay: float):
+    """``decay * ema + (1 - decay) * snap`` over nested dicts of tensors,
+    as fresh tensors."""
+    if isinstance(ema, dict):
+        return {k: _ema_apply(ema[k], snap[k], decay) for k in ema}
+    return decay * ema + (1.0 - decay) * snap
+
+
+def make_sample_weights(dataset: PrunedKeypointDataset, cfg: TrainConfig) -> np.ndarray | None:
+    """Per-row epoch-sampling weights targeting the measured failure regimes
+    (``cfg.oversample_close`` / ``oversample_outframe``) and/or a per-row
+    difficulty file (``cfg.sample_weights_path``); None = uniform."""
+    if not (cfg.oversample_close or cfg.oversample_outframe or cfg.sample_weights_path):
+        return None
+    seg = np.asarray(dataset.split.segmentation_ratios, np.float64)
+    pc = np.asarray(dataset.pixel_coordinates)
+    any_out = (
+        (pc[..., 0] < 0) | (pc[..., 0] > dataset.W - 1) | (pc[..., 1] < 0) | (pc[..., 1] > dataset.H - 1)
+    ).any(axis=-1)
+    w = 1.0 + cfg.oversample_close * (seg > cfg.close_seg_threshold) + cfg.oversample_outframe * any_out
+    w = np.asarray(w, np.float64)
+    if cfg.sample_weights_path:
+        dw = np.load(cfg.sample_weights_path).astype(np.float64)
+        if dw.shape != (len(dataset),):
+            raise ValueError(
+                f"sample_weights_path rows {dw.shape} != dataset rows {len(dataset)} "
+                "— weights were computed against a different train split"
+            )
+        if dw.min() <= 0:
+            raise ValueError("difficulty weights must be positive")
+        w = w * dw
+    return w
+
+
+def _device_local_rows(n_dev: int, n_local: int, n_dataset: int, subset: np.ndarray | None) -> np.ndarray:
+    """Dataset row held at shard-local position (d, i) of a device-resident
+    split laid out as ``order[d * n_local + i]``, ``order = arange(n_dev *
+    n_local) % n_resident`` (wrap-pad), mapped through ``subset`` when
+    given: the weighted epoch draw looks up each row's probability here.
+    One card: ``n_dev`` 1, ``n_local`` the resident rows."""
+    n_res = len(subset) if subset is not None else n_dataset
+    rows = (np.arange(n_dev)[:, None] * n_local + np.arange(n_local)[None, :]) % n_res
+    if subset is not None:
+        rows = np.asarray(subset)[rows]
+    return rows
+
+
+def _device_dataset(
+    dataset: PrunedKeypointDataset,
+    cfg: TrainConfig,
+    device,
+    use_transplant: bool,
+    chunk: int = 128,
+    subset: np.ndarray | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, np.ndarray, int]:
+    """Decodes a split (or its rows ``subset``) onto ``device``: the (N, C,
+    H, W) augmentation input in ``cfg.device_data_dtype``, (N, K, 2) f32
+    keypoints and (N,) f32 example weights. The images are decoded and
+    uploaded ``chunk`` rows at a time into a buffer allocated on the device
+    first (~170 MB a chunk at 256x256x5 f32), so the host never holds the
+    split. Returns (images, coords, weights, valid, n_local): ``valid`` (a
+    host array) flags real rows, all of them on one card, and ``n_local``
+    is the rows held."""
+    dev = resolve_device(device)
+    order = np.arange(len(dataset)) if subset is None else np.asarray(subset)
+    n = len(order)
+    c = _aug_channels(cfg.in_channels, use_transplant)
+    images = torch.empty((n, c, dataset.H, dataset.W), dtype=getattr(torch, cfg.device_data_dtype), device=dev)
+    coords = []
+    for s in range(0, n, chunk):
+        batch = dataset.batch(order[s : s + chunk])
+        images[s : s + chunk].copy_(torch.from_numpy(_prepare_aug_batch(batch, cfg.in_channels, use_transplant)))
+        coords.append(np.asarray(batch["pixel_coordinates"], np.float32))
+    d_coords = torch.from_numpy(np.concatenate(coords)).to(dev)
+    d_weights = torch.from_numpy(np.asarray(dataset.weights[order], np.float32)).to(dev)
+    return images, d_coords, d_weights, np.ones(n, np.float32), n
+
+
+class _HostFeed:
+    """The host loader's device put: each array is written into a pinned
+    staging buffer and copied to the card without blocking the host. Two
+    buffers per name take turns, so the host fills one while the other's
+    copy may still be in flight; an event per buffer says when its copy is
+    done. On the CPU, the arrays are the step's inputs themselves."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.rings: dict = {}
+
+    def put(self, name: str, shape: tuple, fill) -> torch.Tensor:
+        """``fill(out)`` writes an f32 array of ``shape`` into ``out``;
+        returns it as a tensor on the device."""
+        if self.device.type != "cuda":
+            out = torch.empty(shape)
+            fill(out.numpy())
+            return out
+        ring = self.rings.setdefault(name, [None, None, 0])
+        k = ring[2]
+        ring[2] = 1 - k
+        if ring[k] is None or tuple(ring[k][0].shape) != tuple(shape):
+            # a buffer freed while its copy is in flight stays reserved: the
+            # caching host allocator waits for the copy's stream
+            ring[k] = (torch.empty(shape, pin_memory=True), torch.cuda.Event())
+        buf, done = ring[k]
+        done.synchronize()
+        fill(buf.numpy())
+        out = buf.to(self.device, non_blocking=True)
+        done.record()
+        return out
+
+
+def _to_device(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """A small host tensor on ``dev``, without waiting for the device."""
+    return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
+
+
+def train(cfg: TrainConfig, device: str | torch.device | None = "cuda") -> dict:
+    """Runs the full training loop on ``device`` (the card unless the caller
+    passes ``device="cpu"``); returns the JAX trainer's summary dict:
+    ``run_id``, ``final_train_loss``, ``train_loss_history`` (per-epoch
+    mean), ``final_val_loss``, ``state`` and ``ema`` ({"params",
+    "batch_stats"}, or None without ``cfg.ema_decay``).
+
+    As the JAX trainer: epochs from the host loader (a batch prepared on
+    the host and put on the card each step) or, with ``cfg.data_on_device``,
+    from the split decoded onto the card (a step per call, or the epoch in
+    one call with ``device_data_epoch_scan``; a ``device_data_rows`` subset
+    redrawn every ``device_data_refresh_epochs``); step ``s``'s
+    augmentation draws from :func:`step_generator` (seed, s) and epoch
+    ``e``'s order from (seed, e), so a resumed run takes the same steps as
+    an uninterrupted one. Eval every ``val_epochs`` drives the plateau LR;
+    the EMA updates once an epoch; the whole state is saved every
+    ``save_epochs`` under ``outputs/models/<run_id>``, and ``resume``
+    restores it with the scheduler's memory. Per-step losses are read back
+    once an epoch and logged (``outputs/runs/<run_id>/metrics.jsonl``) with
+    each epoch's time, img/s, val loss and LR. ``profile_dir``: a
+    torch.profiler trace of ``profile_steps`` steps after this run's first.
+    """
+    if cfg.distributed or cfg.coordinator_address:
+        raise NotImplementedError(
+            "data-parallel training (cfg.distributed / cfg.coordinator_address) is not ported yet: "
+            "ROADMAP.md Queue A item 1.5 (DDP/NCCL)"
+        )
+    dev = resolve_device(device)
+    np.random.seed(cfg.random_seed)
+
+    train_dataset = PrunedKeypointDataset(cfg.dataset_config, train=True, cache=cfg.cache_dataset)
+    val_dataset = PrunedKeypointDataset(cfg.dataset_config, train=False, cache=cfg.cache_dataset)
+    sample_w = make_sample_weights(train_dataset, cfg)
+    train_loader = PrefetchingLoader(
+        train_dataset, cfg.batch_size, shuffle=True, seed=cfg.random_seed, sample_weights=sample_w
+    )
+    val_loader = PrefetchingLoader(val_dataset, cfg.batch_size, shuffle=False, drop_last=False)
+
+    optimizer = make_optimizer(cfg)
+    state = init_state(cfg, optimizer, dev)
+    train_augment = KeypointAugmentation(cfg.augmentation_config, train=True)
+    val_augment = KeypointAugmentation(cfg.augmentation_config, train=False)
+    use_transplant = cfg.augmentation_config.random_transplantation_with_depth
+    train_step = make_train_step(cfg, optimizer, train_augment)
+    eval_step = make_eval_step(cfg, val_augment)
+    if cfg.data_on_device:
+        dd_train_step = make_device_data_train_step(cfg, optimizer, train_augment)
+        dd_epoch_fn = make_device_data_epoch_fn(cfg, optimizer, train_augment)
+        dd_eval_step = make_device_data_eval_step(cfg, val_augment)
+
+    scheduler = PlateauScheduler(cfg.learning_rate, cfg.plateau_patience, cfg.plateau_factor, cfg.min_learning_rate)
+    ema = None  # epoch-scale Polyak average (cfg.ema_decay); an eval artifact
+    start_epoch = 0
+    if cfg.resume:
+        saved = ckpt.restore_train_state(cfg.resume, device=dev)
+        state = TrainState(saved["params"], saved["batch_stats"], saved["opt_state"])
+        start_epoch = int(saved.get("epoch", -1)) + 1
+        scheduler.lr = float(saved.get("lr", cfg.learning_rate))
+        # the plateau memory must survive the restart, or the LR trajectory
+        # parts from an uninterrupted run's whenever a plateau spans it
+        scheduler.best = float(saved.get("sched_best", float("inf")))
+        scheduler.num_bad = int(saved.get("sched_num_bad", 0))
+        if "ema_params" in saved:
+            ema = {"params": saved["ema_params"], "batch_stats": saved["ema_batch_stats"]}
+        state = state._replace(opt_state=set_learning_rate(state.opt_state, scheduler.lr))
+        run_id = os.path.basename(os.path.normpath(cfg.resume))
+    else:
+        run_id = ptlog.generate_id()
+    run = ptlog.init(cfg.wandb_project, config=cfg, run_id=run_id)
+
+    def _dd_subset_for(epoch: int) -> np.ndarray | None:
+        """The device-resident row subset of this epoch (None: the whole
+        split), keyed by its refresh window, so a resumed run rebuilds the
+        subset an uninterrupted run would hold."""
+        if not (cfg.device_data_rows and cfg.device_data_rows < len(train_dataset)):
+            return None
+        r = cfg.device_data_refresh_epochs
+        window = (epoch // r) * r if r else 0
+        rng = np.random.default_rng((cfg.random_seed, 7771, window))
+        return np.sort(rng.choice(len(train_dataset), cfg.device_data_rows, replace=False))
+
+    bs = cfg.batch_size
+    dd_sub_window = dd_cur_sub = dd_train = dd_val = None
+    if cfg.data_on_device:
+        dd_cur_sub = _dd_subset_for(start_epoch)
+        r = cfg.device_data_refresh_epochs
+        dd_sub_window = (start_epoch // r) * r if (r and dd_cur_sub is not None) else 0
+        dd_train = _device_dataset(train_dataset, cfg, dev, use_transplant, subset=dd_cur_sub)
+        dd_val = _device_dataset(val_dataset, cfg, dev, use_transplant=False)
+        steps_per_epoch = dd_train[4] // bs
+    else:
+        steps_per_epoch = train_loader.num_batches()
+    if steps_per_epoch == 0:
+        where = f"device-resident, {dd_train[4]} rows" if cfg.data_on_device else "host loader"
+        raise ValueError(
+            f"zero train steps per epoch: dataset ({len(train_dataset)} rows, {where}) "
+            f"is smaller than the batch ({bs})"
+        )
+    feed = _HostFeed(dev)
+    c_train = _aug_channels(cfg.in_channels, use_transplant)
+    c_val = _aug_channels(cfg.in_channels, False)
+    h, w = train_dataset.H, train_dataset.W
+    global_step = start_epoch * steps_per_epoch
+    last_val_loss = float("nan")
+    loss_history: list = []  # per-epoch mean train loss
+    epoch_losses: list = []
+    prof = None
+    profile_done = False
+    profile_stop = 0
+    steps_this_run = 0
+
+    def stop_profile():
+        nonlocal prof, profile_done
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        prof.stop()
+        os.makedirs(cfg.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(cfg.profile_dir, f"{run_id}.step{profile_stop}.pt.trace.json"))
+        prof, profile_done = None, True
+
+    def maybe_profile(after_step: bool):
+        """Starts the trace before this run's second step (the first warms
+        up; resume-safe) and stops it ``profile_steps`` steps later."""
+        nonlocal prof, profile_stop
+        if cfg.profile_dir and prof is None and not profile_done and steps_this_run >= 1:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+            prof = profile(activities=acts)
+            prof.start()
+            profile_stop = steps_this_run + cfg.profile_steps
+        if prof is not None and after_step and steps_this_run >= profile_stop:
+            stop_profile()
+
+    for epoch in range(start_epoch, cfg.n_epochs):
+        epoch_losses = []
+        n_images = 0
+        t0 = time.time()
+        if cfg.data_on_device:
+            r = cfg.device_data_refresh_epochs
+            if (
+                r
+                and cfg.device_data_rows
+                and cfg.device_data_rows < len(train_dataset)
+                and (epoch // r) * r != dd_sub_window
+            ):
+                # re-draw the resident subset: free the old split FIRST so the
+                # peak device memory stays one split, then decode + upload
+                dd_train = None
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+                dd_sub_window = (epoch // r) * r
+                dd_cur_sub = _dd_subset_for(epoch)
+                dd_train = _device_dataset(train_dataset, cfg, dev, use_transplant, subset=dd_cur_sub)
+                # hand the decode temporaries' pages back to the OS (glibc
+                # keeps freed arenas: host memory creeps with each refresh)
+                try:
+                    import ctypes
+
+                    ctypes.CDLL("libc.so.6").malloc_trim(0)
+                except OSError:  # not glibc
+                    pass
+                try:
+                    with open("/proc/self/status") as f:
+                        rss = next(ln for ln in f if ln.startswith("VmRSS")).split()[1]
+                    print(f"[refresh epoch {epoch}] host RSS {int(rss) >> 20} GB", flush=True)
+                except (OSError, StopIteration):
+                    pass
+            n_local = dd_train[4]
+            d_w = dd_train[2] if cfg.use_example_weights else None
+            # the epoch's order on the one card (the JAX trainer's shard 0)
+            if sample_w is not None:
+                probs = sample_w[_device_local_rows(1, n_local, len(train_dataset), dd_cur_sub)[0]]
+                perm = np.random.default_rng((cfg.random_seed, epoch, 0)).choice(
+                    n_local, size=n_local, replace=True, p=probs / probs.sum()
+                )
+            else:
+                perm = np.random.default_rng((cfg.random_seed, epoch, 0)).permutation(n_local)
+            idx_ep = torch.from_numpy(perm[: steps_per_epoch * bs].reshape(steps_per_epoch, bs).astype(np.int64))
+            if cfg.device_data_epoch_scan and not cfg.profile_dir:
+                # the whole epoch in one call: the same draws and order as per step
+                state, losses = dd_epoch_fn(
+                    state, dd_train[0], dd_train[1], _to_device(idx_ep, dev), cfg.random_seed, global_step, d_w
+                )
+                epoch_losses.append(losses)
+                n_images += bs * steps_per_epoch
+                global_step += steps_per_epoch
+                steps_this_run += steps_per_epoch
+            else:
+                for s in range(steps_per_epoch):
+                    maybe_profile(False)
+                    gen = step_generator(cfg.random_seed, global_step, dev)
+                    state, loss = dd_train_step(
+                        state, dd_train[0], dd_train[1], _to_device(idx_ep[s], dev), gen, d_w
+                    )
+                    epoch_losses.append(loss)
+                    n_images += bs
+                    global_step += 1
+                    steps_this_run += 1
+                    maybe_profile(True)
+        else:
+            for batch in train_loader.epoch(epoch):
+                maybe_profile(False)
+                b = len(batch["pixel_coordinates"])
+                images = feed.put(
+                    "images", (b, c_train, h, w),
+                    lambda out: _prepare_aug_batch(batch, cfg.in_channels, use_transplant, out=out),
+                )
+                coords = feed.put("coords", batch["pixel_coordinates"].shape,
+                                  lambda out: np.copyto(out, batch["pixel_coordinates"]))
+                weights = None
+                if cfg.use_example_weights:
+                    weights = feed.put("weight", (b,), lambda out: np.copyto(out, batch["weight"]))
+                gen = step_generator(cfg.random_seed, global_step, dev)
+                state, loss = train_step(state, images, coords, gen, weights=weights)
+                epoch_losses.append(loss)
+                n_images += b
+                global_step += 1
+                steps_this_run += 1
+                maybe_profile(True)
+        # the per-step losses (scalars, or the epoch call's (steps,)) in one
+        # read-back, which waits for the epoch's last step
+        epoch_losses = torch.cat([x.reshape(-1) for x in epoch_losses]).tolist() if epoch_losses else []
+        for loss_val in epoch_losses:
+            run.log({"loss": loss_val})
+        if cfg.ema_decay > 0:
+            snap = {"params": state.params, "batch_stats": state.batch_stats}
+            ema = _ema_apply(ema if ema is not None else snap, snap, cfg.ema_decay)
+        epoch_time = time.time() - t0
+        throughput = n_images / max(epoch_time, 1e-9)
+        if epoch_losses:
+            loss_history.append(float(np.mean(epoch_losses)))
+        if epoch % cfg.print_epochs == 0:
+            print(
+                f"[epoch {epoch}] avg loss {np.mean(epoch_losses):.5f} ({epoch_time:.1f}s, {throughput:,.0f} img/s)",
+                flush=True,
+            )
+        run.log({"epoch_time_s": epoch_time, "train_images_per_sec": throughput})
+
+        if epoch % cfg.val_epochs == 0:
+            sums = []  # (loss sum, count) per batch, on the device
+            if cfg.data_on_device:
+                v_imgs, v_crds, _, v_valid, v_n = dd_val
+                for idx, mask in eval_index_batches(v_n, bs):
+                    sums.append(dd_eval_step(state, v_imgs, v_crds, idx, mask * v_valid[idx]))
+            else:
+                for batch in val_loader.epoch(0):
+                    b = len(batch["pixel_coordinates"])
+                    images = feed.put(
+                        "val_images", (b, c_val, h, w),
+                        lambda out: _prepare_aug_batch(batch, cfg.in_channels, False, out=out),
+                    )
+                    coords = feed.put("val_coords", batch["pixel_coordinates"].shape,
+                                      lambda out: np.copyto(out, batch["pixel_coordinates"]))
+                    sums.append(eval_step(state, images, coords, torch.ones(b, device=dev)))
+            pairs = torch.stack([torch.stack(p) for p in sums]).tolist() if sums else []
+            loss_sum = sum(p[0] for p in pairs)
+            count = sum(p[1] for p in pairs)
+            last_val_loss = loss_sum / count if count else float("nan")
+            run.log({"val_loss": last_val_loss, "lr": scheduler.lr})
+            print(f"[epoch {epoch}] val loss {last_val_loss:.5f} (lr {scheduler.lr:.2e})", flush=True)
+            state = state._replace(opt_state=set_learning_rate(state.opt_state, scheduler.step(last_val_loss)))
+
+        if epoch % cfg.save_epochs == 0:
+            to_save = {
+                "params": state.params,
+                "batch_stats": state.batch_stats,
+                "opt_state": state.opt_state,
+                "epoch": epoch,
+                "lr": scheduler.lr,
+                "sched_best": scheduler.best,
+                "sched_num_bad": scheduler.num_bad,
+            }
+            if ema is not None:
+                to_save["ema_params"] = ema["params"]
+                to_save["ema_batch_stats"] = ema["batch_stats"]
+            ckpt.save_train_state(os.path.join(ROOT, "outputs", "models", run_id), to_save)
+
+    if prof is not None:  # a run shorter than profile_steps: flush the trace anyway
+        stop_profile()
+    run.finish()
+    return {
+        "run_id": run_id,
+        "final_train_loss": float(np.mean(epoch_losses)) if epoch_losses else float("nan"),
+        "train_loss_history": loss_history,
+        "final_val_loss": last_val_loss,
+        "state": state,
+        "ema": ema,
+    }
+
+
+def main() -> None:
+    """``python -m perseus_tpu_torch.train.train [--flags]``: :func:`train`
+    of the ``TrainConfig`` the flags give (``configs/cli.py``), on the card."""
+    from perseus_tpu_torch.configs.cli import cli
+
+    train(cli(TrainConfig))
+
+
+if __name__ == "__main__":
+    main()

@@ -11,6 +11,8 @@ from perseus_tpu_torch import resolve_device
 from perseus_tpu_torch.models import convert
 from perseus_tpu_torch.models.resnet import KeypointCNN
 from perseus_tpu_torch.runtime.streaming import StreamingConfig, StreamingPipeline
+from perseus_tpu_torch.train import train
+from perseus_tpu_torch.train.config import TrainConfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "perseus_tpu")
@@ -57,6 +59,7 @@ def test_entry_points_raise_without_cuda():
         lambda: KeypointCNN(num_channels=4),
         lambda: StreamingPipeline(StreamingConfig(num_channels=4), {}),
         lambda: convert.from_jax_train_state({}, {}, ()),
+        lambda: train.train(TrainConfig()),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

@@ -345,10 +345,11 @@ def test_set_learning_rate_and_prepare_batch():
 
 @pytest.mark.parametrize("field", ["init_checkpoint", "init_backbone"])
 def test_init_state_refuses_checkpoint_loading(field):
-    """Checkpoint loading is not ported: a config that asks for it is refused,
-    not quietly given a random init."""
-    cfg = dataclasses.replace(TrainConfig(), **{field: "model.pth"})
-    with pytest.raises(NotImplementedError):
+    """A config that asks for a checkpoint the port cannot read is refused,
+    not quietly given a random init (loading one that exists:
+    tests/test_torch_train_loop.py::test_init_backbone_head_copy)."""
+    cfg = dataclasses.replace(TrainConfig(), **{field: "missing/model.pth"})
+    with pytest.raises(FileNotFoundError):
         train.init_state(cfg, train.make_optimizer(cfg), device="cpu")
 
 
