@@ -77,7 +77,24 @@ non-zero exit:
      losses, params and EMA bit for bit; the device-resident split, the
      epoch in one call and step by step; a half-size subset redrawn every
      epoch. Each path's img/s per epoch. The split and the runs'
-     directories are deleted.
+     directories are deleted;
+  7. the synthetic-data path and its evaluation at full width: (7a)
+     render_video's simulation (host clock) and textures + render (CUDA
+     events, peak memory) at the default VideoConfig (256x256, 24 frames,
+     up to 24 objects, ground, shadows, textures) for two job ids, the
+     first job's first frames rendered again on the CPU (seg equal on
+     99.5% of each frame's pixels; where it agrees, rgb within 1e-4 and
+     depth within rel 1e-5 on 99.5% of them) and its metadata equal; (7b)
+     label_trajectory on the card against the CPU (1e-3 px), the corners'
+     box against the cube's silhouette (the cube rendered alone); (7c)
+     the pose scorer over the rendered frames with the perfect detector
+     (pose RMSE under 5 mm and 6 deg) and with the ResNet-18 from random
+     weights in bf16 (finite; #1 once per frame and once for the cold
+     start); (7d) validate_stats at the default ValConfig (batch 1,024,
+     bf16, depth) over a decoded split of 1,024 rows from a checkpoint
+     the phase writes (#1 once per val batch, img/s), and the card against
+     the CPU in f32 on 16 rows (losses and RMSE within rel 1e-3). The split
+     and the checkpoint are deleted.
 
 Prints each phase's wall time, the card line, then one JSON line describing
 each kernel, then, as the last line, {"ok": true, "device": {...}}.
@@ -1574,6 +1591,265 @@ def phase_train_loop():
                 shutil.rmtree(os.path.join(ROOT, "outputs", kind, run_id), ignore_errors=True)
 
 
+VIDEO_JOBS = ("00000000", "00000001")  # job ids rendered at the default VideoConfig
+CPU_RENDER_FRAMES = 4  # frames of the first job rendered again on the CPU
+POSE_WINDOW = 8  # the pose scorer's smoother window (24 frames: 16 scored)
+POSE_BOUND_MM, POSE_BOUND_DEG = 5.0, 6.0  # tests/test_pose_eval.py's perfect-detector bounds
+VAL_ROWS = 1024  # one val batch at the default ValConfig
+SHARE = 0.995  # card vs CPU render: equal seg pixels, and rgb / depth within tolerance where seg agrees
+RGB_ATOL, DEPTH_RTOL = 1e-4, 1e-5
+
+
+def _first_frames(sim: dict, n: int) -> dict:
+    """A simulate_video result cut to its first n frames."""
+    per_frame = ("obj_rot", "obj_trans", "cam_pose7_wxyz")
+    return {**sim, "inputs": {k: v[:n] if k in per_frame else v for k, v in sim["inputs"].items()}}
+
+
+def _render_timed(cfg, sim):
+    """render_simulated on the card: (rgb, depth, seg, CUDA-event ms, peak
+    bytes allocated during the call)."""
+    import torch
+
+    from perseus_tpu_torch.datagen import generate
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    rgb, depth, seg = generate.render_simulated(cfg, sim, "cuda")
+    end.record()
+    end.synchronize()
+    return rgb, depth, seg, start.elapsed_time(end), torch.cuda.max_memory_allocated() - base
+
+
+def _check_render(rgb, depth, seg, n_obj, label):
+    import torch
+
+    t, h, w = seg.shape
+    if rgb.shape != (t, h, w, 3) or depth.shape != (t, h, w):
+        raise AssertionError(f"{label}: shapes rgb {tuple(rgb.shape)} depth {tuple(depth.shape)} seg {tuple(seg.shape)}")
+    if not (torch.isfinite(rgb).all() and torch.isfinite(depth).all() and (depth > 0).all()):
+        raise AssertionError(f"{label}: non-finite rgb or depth, or depth <= 0")
+    if rgb.min() < 0 or rgb.max() > 1 or seg.min() < 0 or seg.max() > n_obj:
+        raise AssertionError(f"{label}: rgb in [{rgb.min()}, {rgb.max()}], seg in [{seg.min()}, {seg.max()}]")
+    if not (seg == 1).any():
+        raise AssertionError(f"{label}: the cube is in no frame")
+
+
+def _render_agreement(card, cpu) -> dict:
+    """Card vs CPU render of the same frames: the share of equal seg pixels
+    (worst frame), and where seg agrees the share of pixels with rgb within
+    RGB_ATOL and depth within DEPTH_RTOL (worst frame), with the largest
+    errors there."""
+    import torch
+
+    (rgb_a, depth_a, seg_a), (rgb_b, depth_b, seg_b) = [[x.cpu() for x in r] for r in (card, cpu)]
+    same = seg_a == seg_b
+    rgb_err = (rgb_a - rgb_b).abs().amax(dim=-1)
+    depth_err = (depth_a - depth_b).abs() / depth_b.abs()
+    ok = same & (rgb_err <= RGB_ATOL) & (depth_err <= DEPTH_RTOL)
+    return {
+        "seg_equal": same.float().mean(dim=(1, 2)).min().item(),
+        "pixels_within": (ok.sum(dim=(1, 2)) / same.sum(dim=(1, 2))).min().item(),
+        "rgb_max_err": rgb_err[same].max().item(),
+        "depth_max_rel_err": depth_err[same].max().item(),
+        "rgb_median_err": torch.median(rgb_err[same]).item(),
+    }
+
+
+def _check_labels_on_mask(cfg, sim, kp, seg):
+    """The cube's projected corners against its silhouette: the cube
+    rendered alone on the card (no occluder) has the bounding box of its 8
+    projected corners (a convex solid's silhouette is their hull) within
+    1.5 px on every side where the corners lie inside the image, its mask
+    holds the scene's cube mask (occlusion only removes pixels), and the
+    scene's mask lies inside the corners' box. Returns the frames checked."""
+    import numpy as np
+    import torch
+
+    from perseus_tpu_torch.datagen import generate
+
+    alone = dict(sim["inputs"])
+    alone["active"] = np.zeros_like(alone["active"])
+    alone["active"][0] = 1.0
+    _, _, seg_alone = generate.render_simulated(cfg, {**sim, "inputs": alone}, "cuda")
+    res = cfg.resolution
+    full_frames = 0
+    for i in range(seg.shape[0]):
+        lo, hi = kp[i].min(dim=0).values.tolist(), kp[i].max(dim=0).values.tolist()
+        for mask, label in ((seg_alone[i] == 1, "alone"), (seg[i] == 1, "scene")):
+            if not mask.any():
+                continue
+            ys, xs = torch.nonzero(mask, as_tuple=True)
+            box = (xs.min().item(), ys.min().item(), xs.max().item(), ys.max().item())
+            if box[0] < lo[0] - 1.5 or box[1] < lo[1] - 1.5 or box[2] > hi[0] + 1.5 or box[3] > hi[1] + 1.5:
+                raise AssertionError(f"frame {i}: the cube's {label} mask {box} leaves its corners' box {lo + hi}")
+        if ((seg[i] == 1) & (seg_alone[i] != 1)).any():
+            raise AssertionError(f"frame {i}: scene cube pixels outside the cube rendered alone")
+        if min(lo) >= 0 and max(hi) <= res - 1 and (seg_alone[i] == 1).any():
+            ys, xs = torch.nonzero(seg_alone[i] == 1, as_tuple=True)
+            box = (xs.min().item(), ys.min().item(), xs.max().item(), ys.max().item())
+            if max(abs(box[0] - lo[0]), abs(box[1] - lo[1]), abs(box[2] - hi[0]), abs(box[3] - hi[1])) > 1.5:
+                raise AssertionError(f"frame {i}: corners' box {lo + hi} and the cube's silhouette {box} differ")
+            full_frames += 1
+    return full_frames
+
+
+def phase_datagen_eval():
+    """Phase 7: the synthetic-data path and its evaluation at full width.
+    7a render_video's two halves at the default VideoConfig for two job ids
+    (simulation on the host clock, textures + render on CUDA events, peak
+    memory), against the CPU render of the first job's first frames and
+    its metadata; 7b label_trajectory on the card against the CPU, the
+    corners against the cube's mask; 7c the pose scorer over the rendered
+    frames with the perfect detector (the labels) and with the ResNet-18
+    from random weights in bf16 (#1 counted); 7d validate_stats at the
+    default ValConfig over a decoded split of VAL_ROWS rows from a
+    checkpoint written by the port (#1 counted), and the card against the
+    CPU in f32 on a small split. Returns #1's launches in 7c and 7d."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from perseus_tpu_torch import ROOT
+    from perseus_tpu_torch.data.dataset import KeypointDatasetConfig
+    from perseus_tpu_torch.data.synthetic import generate_synthetic_decoded_split
+    from perseus_tpu_torch.datagen import generate
+    from perseus_tpu_torch.datagen.labeling import label_trajectory
+    from perseus_tpu_torch.eval import pose_eval, validate
+    from perseus_tpu_torch.models import resnet
+    from perseus_tpu_torch.train import checkpoint as ckpt
+    from perseus_tpu_torch.train import train
+    from perseus_tpu_torch.train.config import TrainConfig
+
+    # 7a: render
+    cfg = generate.VideoConfig()
+    generate.render_simulated(cfg, generate.simulate_video(cfg, "warmup"), "cuda")  # allocator, first launches
+    videos = []
+    for job in VIDEO_JOBS:
+        t0 = time.perf_counter()
+        sim = generate.simulate_video(cfg, job)
+        sim_s = time.perf_counter() - t0
+        rgb, depth, seg, ms, peak = _render_timed(cfg, sim)
+        n_obj = int(sim["inputs"]["active"].sum())
+        _check_render(rgb, depth, seg, n_obj, f"render {job}")
+        videos.append((job, sim, rgb, depth, seg))
+        log(f"7a render {job} at {cfg.resolution}^2, {cfg.frames} frames, {n_obj} objects of {cfg.max_objects} "
+            f"({sim['scene']['style']['sky_family']} sky, {sim['scene']['style']['ground_family']} ground): "
+            f"simulation {sim_s * 1e3:.3f} ms (host clock), textures + render {ms:.3f} ms (CUDA events), "
+            f"{cfg.frames / ms * 1e3:.1f} frames/s, peak memory {peak / 2**30:.3f} GiB above the "
+            f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB held")
+    job, sim, rgb, depth, seg = videos[0]
+    sim_cpu = generate.simulate_video(cfg, job)
+    if json.dumps(sim_cpu["metadata"]) != json.dumps(sim["metadata"]):
+        raise AssertionError("7a: the metadata of a second simulation differs")
+    t0 = time.perf_counter()
+    cpu = generate.render_simulated(cfg, _first_frames(sim_cpu, CPU_RENDER_FRAMES), "cpu")
+    cpu_s = time.perf_counter() - t0
+    n = CPU_RENDER_FRAMES
+    agree = _render_agreement((rgb[:n], depth[:n], seg[:n]), cpu)
+    log(f"7a card vs CPU render of {job}'s first {n} frames (CPU {cpu_s:.3f} s): {agree}; metadata identical")
+    if agree["seg_equal"] < SHARE or agree["pixels_within"] < SHARE:
+        raise AssertionError(f"7a: card and CPU renders disagree: {agree}")
+
+    # 7b: label
+    labels = []
+    for job, sim, rgb, depth, seg in videos:
+        meta = sim["metadata"]
+        cube = meta["instances"][0]
+        obj7 = np.concatenate([np.asarray(cube["positions"]), np.asarray(cube["quaternions"])], axis=-1)
+        cam7 = np.concatenate([np.asarray(meta["camera"]["positions"]), np.asarray(meta["camera"]["quaternions"])], axis=-1)
+        args = (obj7, cam7, cube["abs_scale"], meta["camera"]["field_of_view"], cfg.resolution, cfg.resolution)
+        kp = label_trajectory(*args, device="cuda")
+        err = (kp.cpu() - label_trajectory(*args, device="cpu")).abs().max().item()
+        if kp.shape != (cfg.frames, 8, 2) or not torch.isfinite(kp).all() or err > 1e-3:
+            raise AssertionError(f"7b {job}: labels {tuple(kp.shape)}, card vs CPU max abs {err} px")
+        full = _check_labels_on_mask(cfg, sim, kp, seg)
+        log(f"7b labels {job}: card vs CPU max abs {err:.3e} px; corners on the cube's silhouette, "
+            f"{full} of {cfg.frames} frames with all 8 corners in the image")
+        labels.append(kp)
+
+    # 7c: pose eval, perfect detector on both videos, then the ResNet-18
+    for (job, sim, rgb, depth, seg), kp in zip(videos, labels):
+        t0 = time.perf_counter()
+        res = pose_eval.score_pose_tracking(torch.cat([rgb, depth[..., None]], dim=-1), sim["metadata"],
+                                            detector_fn=lambda f, kp=kp: kp, window=POSE_WINDOW, device="cuda")
+        wall = time.perf_counter() - t0
+        log(f"7c pose, perfect detector, {job}: RMSE {res['pose_rmse_mm']:.4f} mm / {res['pose_rmse_deg']:.4f} deg, "
+            f"median {res['pose_median_mm']:.4f} mm / {res['pose_median_deg']:.4f} deg over {res['n_scored']} "
+            f"scored frames (window {POSE_WINDOW}); {wall / cfg.frames * 1e3:.1f} ms/frame (host clock)")
+        if not (res["pose_rmse_mm"] < POSE_BOUND_MM and res["pose_rmse_deg"] < POSE_BOUND_DEG):
+            raise AssertionError(f"7c {job}: perfect-detector pose RMSE over {POSE_BOUND_MM} mm / {POSE_BOUND_DEG} deg")
+    job, sim, rgb, depth, seg = videos[0]
+    frames = torch.cat([rgb, depth[..., None]], dim=-1)
+    sd = resnet.KeypointCNN(n_keypoints=8, num_channels=4, device="cuda",
+                            generator=torch.Generator().manual_seed(0)).state_dict()
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = pose_eval.score_pose_tracking(frames, sim["metadata"], state_dict=sd, window=POSE_WINDOW, amp=True,
+                                        device="cuda")
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    pose_launches = counts["max_pool_3x3_s2"]
+    # one detection per frame, and the cold start's detection of frame 0
+    expect = {k: (cfg.frames + 1 if k == "max_pool_3x3_s2" else 0) for k in counts}
+    finite = all(np.isfinite(res[k]).all() for k in ("pose_rmse_mm", "pose_rmse_deg", "per_frame_rot_deg",
+                                                      "per_frame_trans_mm"))
+    log(f"7c pose, ResNet-18 random weights bf16, {job}: RMSE {res['pose_rmse_mm']:.4f} mm / "
+        f"{res['pose_rmse_deg']:.4f} deg (random weights: finite is the check); {wall / cfg.frames * 1e3:.1f} "
+        f"ms/frame (host clock); launches {counts}")
+    if not finite or counts != expect:
+        raise AssertionError(f"7c: finite {finite}, launches {counts}, expected {expect}")
+
+    # 7d: validate
+    os.makedirs(os.path.join(ROOT, "outputs"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="smoke_validate_", dir=os.path.join(ROOT, "outputs"))
+    try:
+        tcfg = TrainConfig()
+        state = train.init_state(tcfg, train.make_optimizer(tcfg), device="cuda")
+        ckpt_dir = os.path.join(tmp, "model")
+        ckpt.save_train_state(ckpt_dir, {"params": state.params, "batch_stats": state.batch_stats})
+        t0 = time.perf_counter()
+        split = generate_synthetic_decoded_split(os.path.join(tmp, "split"), 8, VAL_ROWS, 256, 256, 8, seed=3)
+        split_s = time.perf_counter() - t0
+        vcfg = validate.ValConfig(model_path=ckpt_dir, dataset_config=KeypointDatasetConfig(dataset_path=split),
+                                  max_plots=0)
+        batches = -(-VAL_ROWS // vcfg.batch_size)
+        validate.validate_stats(vcfg, "cuda")  # warm-up: cuDNN plans at batch 1,024
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = validate.validate_stats(vcfg, "cuda")
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        val_launches = counts["max_pool_3x3_s2"]
+        expect = {k: (batches if k == "max_pool_3x3_s2" else 0) for k in counts}
+        log(f"7d validate at the default ValConfig (batch {vcfg.batch_size}, bf16, depth) over {VAL_ROWS} rows "
+            f"(decoded split written in {split_s:.3f} s): {wall:.3f} s, {VAL_ROWS / wall:.1f} img/s (host clock); "
+            f"loss mean {out['stats']['mean']:.6f}, RMSE {out['rmse_px']:.4f} px; launches {counts}")
+        if counts != expect or out["losses"].shape != (VAL_ROWS,) or not np.isfinite(out["losses"]).all():
+            raise AssertionError(f"7d: launches {counts}, expected {expect}; losses {out['losses'].shape}")
+        small = generate_synthetic_decoded_split(os.path.join(tmp, "small"), 4, 16, 256, 256, 8, seed=4)
+        scfg = dataclasses.replace(vcfg, amp=False, batch_size=8,
+                                   dataset_config=KeypointDatasetConfig(dataset_path=small))
+        on_card, on_cpu = validate.validate_stats(scfg, "cuda"), validate.validate_stats(scfg, "cpu")
+        loss_err = float(np.max(np.abs(on_card["losses"] - on_cpu["losses"]) / np.abs(on_cpu["losses"])))
+        rmse_err = abs(on_card["rmse_px"] - on_cpu["rmse_px"]) / on_cpu["rmse_px"]
+        log(f"7d small f32 validate (16 rows, batch 8), card vs CPU: losses max rel {loss_err:.3e}, "
+            f"RMSE rel {rmse_err:.3e}")
+        if loss_err > 1e-3 or rmse_err > 1e-3:
+            raise AssertionError(f"7d: card and CPU validate disagree: losses {loss_err}, RMSE {rmse_err}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return pose_launches, val_launches
+
+
 def _entry(name, source, replaces, launches, err, timing, library_ms):
     t_kernel, t_plain, bound, by = timing
     return {
@@ -1613,6 +1889,7 @@ def main() -> int:
         unfused_counts, _ = run("train unfused (device-resident split)", phase_train_unfused)
         serving_launches = run("serving", phase_serving)
         run("train loop", phase_train_loop)
+        pose_launches, val_launches = run("datagen and eval", phase_datagen_eval)
     except Exception as exc:  # report which phase failed, with its traceback
         import traceback
 
@@ -1620,14 +1897,16 @@ def main() -> int:
         print(f"[smoke] FAIL in phase {phase}: {exc}", file=sys.stderr)
         return 1
     log(f"maxpool forward launches: {train_counts['max_pool_3x3_s2']} in {TRAIN_STEPS} train steps, "
-        f"{serving_launches} in {N_FRAMES} serving frames")
+        f"{serving_launches} in {N_FRAMES} serving frames, {pose_launches} in the pose scorer "
+        f"(a frame each and the cold start's), {val_launches} in validate's val batches")
     pool_src, aug_src = "perseus_tpu_torch/csrc/maxpool.cu", "perseus_tpu_torch/csrc/augment.cu"
     # each kernel timed at the shape of the path that counts it: the ultra
     # kernel and the chain branch take 5 channels, the warp branch 4
     aug = lambda kind, c: augk[(kind, c, torch.float32)]  # noqa: E731
     kernels = [
         _entry("max_pool_3x3_s2", pool_src, "perseus_tpu/models/pool_pallas.py:55",
-               train_counts["max_pool_3x3_s2"], fwd_err, (fwd[0], fwd[1], fwd[3], fwd[4]), fwd[2]),
+               train_counts["max_pool_3x3_s2"] + pose_launches + val_launches, fwd_err,
+               (fwd[0], fwd[1], fwd[3], fwd[4]), fwd[2]),
         _entry("max_pool_3x3_s2_backward", pool_src, "perseus_tpu/models/pool_pallas.py:79",
                train_counts["max_pool_3x3_s2_backward"], bwd_err, (bwd[0], bwd[1], bwd[3], bwd[4]), bwd[2]),
         _entry("fused_apply", aug_src, "perseus_tpu/augment/fused.py:333",

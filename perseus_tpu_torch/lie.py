@@ -1,6 +1,7 @@
 """SO(3)/SE(3) Lie group operations with analytic Jacobians, in PyTorch.
 
-Port of ``perseus_tpu/lie.py`` (the functions the smoother reaches). Same
+Port of ``perseus_tpu/lie.py`` (the functions that the smoother, the
+renderer, the labeler and the pose evaluation reach). Same
 conventions: twists ``xi = [omega; v]``, Jacobians with respect to right
 perturbations, ``se3_exp`` the true SE(3) exponential. Every function
 broadcasts over leading batch dimensions and is safe under ``torch.func``
@@ -26,6 +27,10 @@ __all__ = [
     "so3_left_jacobian_inverse",
     "so3_right_jacobian_inverse",
     "rot_to_quat_wxyz",
+    "quat_wxyz_to_rot",
+    "quat_xyzw_to_rot",
+    "rot_to_quat_xyzw",
+    "euler_xyz_to_rot",
     "se3_identity",
     "se3_exp",
     "se3_log",
@@ -42,6 +47,9 @@ __all__ = [
     "transform_from_jacobians",
     "transform_to",
     "transform_to_jacobians",
+    "pose7_wxyz_to_se3",
+    "se3_to_pose7_wxyz",
+    "pose7_xyzw_to_se3",
 ]
 
 _EPS2 = 1e-8  # threshold on theta^2 below which Taylor branches are used
@@ -129,6 +137,50 @@ def rot_to_quat_wxyz(r: torch.Tensor) -> torch.Tensor:
     q = q / (2.0 * torch.sqrt(torch.clamp_min(t_sel, 1e-12)))[..., None]
     q = torch.where(q[..., 0:1] < 0.0, -q, q)
     return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def quat_wxyz_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion [w, x, y, z] -> rotation matrix (..., 3, 3)."""
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], dim=-1),
+            torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], dim=-1),
+            torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def quat_xyzw_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion [x, y, z, w] (pypose/scipy order) -> rotation matrix."""
+    return quat_wxyz_to_rot(torch.cat([q[..., 3:4], q[..., 0:3]], dim=-1))
+
+
+def rot_to_quat_xyzw(r: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> unit quaternion [x, y, z, w]."""
+    q = rot_to_quat_wxyz(r)
+    return torch.cat([q[..., 1:4], q[..., 0:1]], dim=-1)
+
+
+def euler_xyz_to_rot(euler: torch.Tensor) -> torch.Tensor:
+    """Intrinsic XYZ Euler angles -> rotation matrix: R = Rx @ Ry @ Rz
+    (pypose.euler2SO3's convention, which the Blender -> OpenCV camera
+    conversion uses)."""
+    cx, sx = torch.cos(euler[..., 0]), torch.sin(euler[..., 0])
+    cy, sy = torch.cos(euler[..., 1]), torch.sin(euler[..., 1])
+    cz, sz = torch.cos(euler[..., 2]), torch.sin(euler[..., 2])
+    one = torch.ones_like(cx)
+    zero = torch.zeros_like(cx)
+
+    def mat(rows):
+        return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+    mx = mat([[one, zero, zero], [zero, cx, -sx], [zero, sx, cx]])
+    my = mat([[cy, zero, sy], [zero, one, zero], [-sy, zero, cy]])
+    mz = mat([[cz, -sz, zero], [sz, cz, zero], [zero, zero, one]])
+    return mx @ my @ mz
 
 
 def so3_log(r: torch.Tensor) -> torch.Tensor:
@@ -329,3 +381,20 @@ def transform_to_jacobians(t: SE3, p: torch.Tensor):
     s = skew(pb)
     d_pose = torch.cat([s, -_eye3_like(pb, s.shape)], dim=-1)
     return pb, d_pose, t.rot.transpose(-1, -2).expand(s.shape)
+
+
+# 7-vector pose layouts (dataset / kubric metadata)
+
+
+def pose7_wxyz_to_se3(pose7: torch.Tensor) -> SE3:
+    """[x y z qw qx qy qz] (kubric metadata order) -> SE3."""
+    return SE3(quat_wxyz_to_rot(pose7[..., 3:7]), pose7[..., :3])
+
+
+def se3_to_pose7_wxyz(t: SE3) -> torch.Tensor:
+    return torch.cat([t.trans, rot_to_quat_wxyz(t.rot)], dim=-1)
+
+
+def pose7_xyzw_to_se3(pose7: torch.Tensor) -> SE3:
+    """[x y z qx qy qz qw] (pypose order) -> SE3."""
+    return SE3(quat_xyzw_to_rot(pose7[..., 3:7]), pose7[..., :3])
