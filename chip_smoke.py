@@ -94,7 +94,23 @@ non-zero exit:
      bf16, depth) over a decoded split of 1,024 rows from a checkpoint
      the phase writes (#1 once per val batch, img/s), and the card against
      the CPU in f32 on 16 rows (losses and RMSE within rel 1e-3). The split
-     and the checkpoint are deleted.
+     and the checkpoint are deleted;
+  8. the eval and runtime tools at full width: (8a) run_parity at the
+     default ParityConfig (4 channels, batch 32, lr 1e-3, wd 1e-2, clip
+     1.0; epochs cut from 15 to 2) over a decoded split of 512 + 128 rows
+     at 256x256, unaugmented and augmented (unfused, #3 once per step), the
+     port's ResNet-18 (#1, #2 once per step) against a stock PyTorch one in
+     f32 with TF32 off: final losses within 20%, round-trip logits within
+     1e-5, and unaugmented the val RMSE ratio within 0.8-1.25 (the JAX
+     test's bounds; the augmented ratio is logged: see phase_eval_tools);
+     the two train steps timed alone; (8b) predict_real at the default
+     ValConfig (bf16) over 48 frames at 376x672 and 8 at 1080x1920, #1 once
+     per image, img/s, identical keypoints with the plain maxpool, card vs
+     CPU in f32 (crops 1e-4, keypoints 1e-3 px); (8c) the augmentation
+     grid's computation on 16 5-channel rows, #6 once, card vs CPU on the
+     same draws (keypoints 1e-4 px; images 1e-5 with the affine off, since
+     each device builds the affine matrices ulps apart); (8d) stream_frames over 8 frames in phase 5's serving
+     config, #1 once per frame, equal to frame-by-frame calls.
 
 Prints each phase's wall time, the card line, then one JSON line describing
 each kernel, then, as the last line, {"ok": true, "device": {...}}.
@@ -1850,6 +1866,322 @@ def phase_datagen_eval():
     return pose_launches, val_launches
 
 
+PARITY_ROWS, PARITY_VAL_ROWS, PARITY_EPOCHS = 512, 128, 2  # the parity split; epochs cut from 15
+REAL_FRAMES = ((48, 376, 672), (8, 1080, 1920))  # (count, H, W): ZED VGA (grows), 1080p (shrinks)
+CPU_REAL_FRAMES = 2  # frames of each size run again on the CPU in f32
+GRID_ROWS = 16  # the augmentation grid's batch (VisualizeConfig.num_images)
+STREAM_FRAMES = 8
+GRID_ATOL = 1e-5  # the augmentation tests' tolerance
+GRID_COORD_ATOL = 1e-4  # px: a few f32 ulps of coordinates up to 256
+
+
+def _parity_step_times(cfg):
+    """The port's train step and the oracle's alone at the parity config
+    (batch of 4-channel 256x256 frames, f32, TF32 off), CUDA events over 10
+    steps after 3 warm-up steps each, from the oracle's seeded init."""
+    import torch
+
+    from perseus_tpu_torch.eval import parity
+    from perseus_tpu_torch.models import convert, resnet
+    from perseus_tpu_torch.train.train import ClipAdamW
+
+    gen = torch.Generator().manual_seed(5)
+    x = torch.rand((cfg.batch_size, cfg.in_channels, 256, 256), generator=gen).to("cuda")
+    y = (torch.rand((cfg.batch_size, 2 * cfg.n_keypoints), generator=gen) * 2 - 1).to("cuda")
+    oracle = parity._oracle(cfg).to("cuda")
+    sd = {k: v.to("cuda") for k, v in convert.normalize_reference_sd(oracle.state_dict()).items()}
+    is_stat = lambda k: k.endswith(("running_mean", "running_var"))  # noqa: E731
+    params = {k: v for k, v in sd.items() if not is_stat(k)}
+    stats = {k: v for k, v in sd.items() if is_stat(k)}
+    opt = ClipAdamW(cfg.grad_clip_norm, cfg.learning_rate, cfg.weight_decay)
+    opt_state = opt.init(params)
+    oracle_opt = torch.optim.AdamW(oracle.parameters(), lr=cfg.learning_rate, weight_decay=cfg.weight_decay)
+    port = lambda: parity.port_train_step(opt, params, stats, opt_state, x, y)  # noqa: E731
+    ref = lambda: parity.oracle_train_step(oracle, oracle_opt, x, y, cfg.grad_clip_norm)  # noqa: E731
+    with resnet._full_f32():
+        port_ms, oracle_ms = time_ms(port, iters=10, warmup=3), time_ms(ref, iters=10, warmup=3)
+        kernels = {name: _kernel_ms(fn) for name, fn in (("port", port), ("oracle", ref))}
+    return port_ms, oracle_ms, kernels
+
+
+def _kernel_ms(fn, calls: int = 3) -> tuple[float, float] | None:
+    """(device kernel ms, kernel launches) per call of ``fn``, from
+    torch.profiler (kernels only); None where the profiler fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as exc:  # noqa: BLE001  (a diagnostic: reported, not fatal)
+        log(f"kernel time: not measured (profiler: {exc!r})")
+        return None
+    return (sum(e.self_device_time_total for e in kernels) / calls / 1e3, sum(e.count for e in kernels) / calls)
+
+
+def parity_sensitivity(seeds=(0, 1, 2, 3), epochs=(2,), augmented=True) -> list:
+    """How far two runs of run_parity that differ only in cuDNN's choice of
+    convolution algorithms (the default heuristics, then
+    ``cudnn.benchmark``) part: each model's val RMSE in both, per seed and
+    epoch count, on phase 8's split. Not part of main(): a diagnostic of
+    how well the parity bounds are conditioned at this size."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from perseus_tpu_torch import ROOT
+    from perseus_tpu_torch.data.synthetic import generate_synthetic_decoded_split
+    from perseus_tpu_torch.eval import parity
+
+    os.makedirs(os.path.join(ROOT, "outputs"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="smoke_parity_", dir=os.path.join(ROOT, "outputs"))
+    rows = []
+    try:
+        split = generate_synthetic_decoded_split(os.path.join(tmp, "split"), PARITY_ROWS, PARITY_VAL_ROWS, 256, 256, 8,
+                                                 seed=6)
+        for n_epochs in epochs:
+            for seed in seeds:
+                cfg = parity.ParityConfig(dataset_path=split, epochs=n_epochs, augmented=augmented, seed=seed)
+                runs = []
+                for bench in (False, True):
+                    old = torch.backends.cudnn.benchmark
+                    torch.backends.cudnn.benchmark = bench
+                    try:
+                        runs.append(parity.run_parity(dataclasses.replace(cfg), "cuda"))
+                    finally:
+                        torch.backends.cudnn.benchmark = old
+                a, b = runs
+                row = {"epochs": n_epochs, "seed": seed, "augmented": augmented,
+                       "oracle_rmse": (a["torch_val_rmse_px"], b["torch_val_rmse_px"]),
+                       "port_rmse": (a["port_val_rmse_px"], b["port_val_rmse_px"]),
+                       "ratio": (a["rmse_ratio"], b["rmse_ratio"]),
+                       "oracle_self_ratio": a["torch_val_rmse_px"] / b["torch_val_rmse_px"],
+                       "port_self_ratio": a["port_val_rmse_px"] / b["port_val_rmse_px"]}
+                rows.append(row)
+                log(f"parity sensitivity: {row}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rows
+
+
+def phase_eval_tools():
+    """Phase 8: the eval and runtime tools at full width. 8a run_parity at
+    the default ParityConfig (4 channels, batch 32, lr 1e-3, wd 1e-2, clip
+    1.0) over a decoded split of PARITY_ROWS + PARITY_VAL_ROWS rows at
+    256x256, PARITY_EPOCHS epochs, unaugmented and augmented, #1, #2 and #3
+    counted over each call, the JAX test's bounds; the port's train step
+    and the oracle's, each timed alone. 8b predict_real at the default
+    ValConfig (bf16) over REAL_FRAMES frames, #1 once per image, img/s;
+    the same frames with the plain maxpool, and on the CPU in f32. 8c the
+    augmentation grid's computation (augment_batch) on GRID_ROWS 5-channel
+    rows, #6 once; the CPU on the same draws. 8d stream_frames over
+    STREAM_FRAMES SyntheticSource frames in phase 5's serving config, #1
+    once per frame, against frame-by-frame calls. Returns the launches of
+    every counted run, summed."""
+    import collections
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from perseus_tpu_torch import ROOT
+    from perseus_tpu_torch.augment import pipeline as aug_pipeline
+    from perseus_tpu_torch.augment.pipeline import KeypointAugmentation
+    from perseus_tpu_torch.data.synthetic import generate_synthetic_decoded_split, make_batch
+    from perseus_tpu_torch.eval import parity, validate_real, visualize
+    from perseus_tpu_torch.models import pool, resnet
+    from perseus_tpu_torch.runtime.sources import SyntheticSource
+    from perseus_tpu_torch.runtime.streaming import StreamingPipeline, stream_frames
+
+    total = collections.Counter()
+    zero = {fn.__name__: 0 for fn in _counted()}
+
+    # 8a: parity
+    os.makedirs(os.path.join(ROOT, "outputs"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="smoke_parity_", dir=os.path.join(ROOT, "outputs"))
+    try:
+        t0 = time.perf_counter()
+        split = generate_synthetic_decoded_split(os.path.join(tmp, "split"), PARITY_ROWS, PARITY_VAL_ROWS, 256, 256, 8,
+                                                 seed=6)
+        log(f"8a parity: decoded split of {PARITY_ROWS} + {PARITY_VAL_ROWS} rows at 256^2 written in "
+            f"{time.perf_counter() - t0:.3f} s")
+        cfg = parity.ParityConfig(dataset_path=split, epochs=PARITY_EPOCHS)
+        steps = PARITY_EPOCHS * (PARITY_ROWS // cfg.batch_size)
+        for augmented in (False, True):
+            run_cfg = dataclasses.replace(cfg, augmented=augmented)
+            # cuDNN's deterministic algorithms: the two free-running
+            # trajectories part at the first AdamW step, and with the
+            # default algorithms a rerun parts too (on an H100 80GB HBM3 at
+            # 700 W the unaugmented val RMSE ratio spread 0.876-1.095 over
+            # four runs), so a run is reproducible only with them
+            old_det = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            try:
+                _reset_counts()
+                t0 = time.perf_counter()
+                result = parity.run_parity(run_cfg, "cuda")
+                wall = time.perf_counter() - t0
+                counts = _counts()
+            finally:
+                torch.backends.cudnn.deterministic = old_det
+            total.update(counts)
+            # #1: each port step, the val forward, the round trip's forward
+            expect = dict(zero, max_pool_3x3_s2=steps + 2, max_pool_3x3_s2_backward=steps,
+                          warp_affine_two_pass=steps if augmented else 0)
+            t_loss, p_loss = result["final_losses"]
+            log(f"8a parity augmented={augmented}: {steps} steps of both models in {wall:.3f} s; val RMSE port "
+                f"{result['port_val_rmse_px']:.4f} px, oracle {result['torch_val_rmse_px']:.4f} px, ratio "
+                f"{result['rmse_ratio']:.6f}; final losses oracle {t_loss:.6f}, port {p_loss:.6f} "
+                f"(gap {abs(t_loss - p_loss) / t_loss:.4f}); round-trip logits max abs "
+                f"{result['roundtrip_logits_max_abs_diff']:.3e}; launches {counts}")
+            # the JAX test's bounds (tests/test_parity_training.py); the val
+            # RMSE ratio of the augmented run is logged, not held: at this
+            # size the oracle against itself, with only cuDNN's choice of
+            # algorithms changed, parts by 0.26-1.68x in val RMSE after 2 or
+            # 15 augmented epochs (parity_sensitivity on an H100 80GB HBM3
+            # at 700 W), while the unaugmented runs agree within 0.95-1.07
+            ratio_ok = augmented or 0.8 < result["rmse_ratio"] < 1.25
+            if not (ratio_ok and abs(t_loss - p_loss) < 0.2 * max(t_loss, 1e-6)
+                    and result["roundtrip_logits_max_abs_diff"] < 1e-5 and counts == expect):
+                raise AssertionError(f"8a parity augmented={augmented}: {result}; launches {counts}, expected {expect}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    port_ms, oracle_ms, kernels = _parity_step_times(cfg)
+    log(f"8a parity train step at batch {cfg.batch_size}, f32, TF32 off (CUDA events, 10 steps): port "
+        f"{port_ms:.4f} ms, oracle (stock PyTorch ResNet-18, AdamW) {oracle_ms:.4f} ms, port / oracle "
+        f"{port_ms / oracle_ms:.4f}; kernels per step (torch.profiler, ms, launches): {kernels}")
+
+    # 8b: predict_real
+    vcfg = validate_real.ValConfig()
+    folded = resnet.fold_batchnorm(resnet.KeypointCNN(n_keypoints=8, num_channels=3, device="cuda",
+                                                      generator=torch.Generator().manual_seed(0)).state_dict())
+    rng = np.random.default_rng(7)
+    frames = [rng.random((h, w, 3), dtype=np.float32) for n, h, w in REAL_FRAMES for _ in range(n)]
+    n_real = len(frames)
+    warm = [frames[0], frames[-1]]
+    validate_real.predict_real(folded, warm, vcfg, "cuda")  # cuDNN plans, the resize kernels
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    crops, kps = validate_real.predict_real(folded, frames, vcfg, "cuda")
+    kps_host = kps.cpu()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    total.update(counts)
+    if counts != dict(zero, max_pool_3x3_s2=n_real) or kps.shape != (n_real, 8, 2) or \
+            crops.shape != (n_real, 256, 256, 3) or not (torch.isfinite(kps).all() and torch.isfinite(crops).all()):
+        raise AssertionError(f"8b predict_real: launches {counts}, keypoints {tuple(kps.shape)}, crops "
+                             f"{tuple(crops.shape)}")
+    log(f"8b predict_real at the default ValConfig (bf16): {n_real} frames ({', '.join(f'{n} at {h}x{w}' for n, h, w in REAL_FRAMES)}) "
+        f"in {wall:.3f} s, {n_real / wall:.1f} img/s (host clock, keypoints read back); launches {counts}")
+    old_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, a = validate_real.predict_real(folded, frames, vcfg, "cuda")
+        with mock.patch.object(pool, "max_pool_3x3_s2", pool.max_pool_3x3_s2_reference):
+            _, b = validate_real.predict_real(folded, frames, vcfg, "cuda")
+    finally:
+        torch.backends.cudnn.deterministic = old_det
+    if not torch.equal(a, b):
+        raise AssertionError(f"8b: kernel and plain maxpool keypoints differ by {(a - b).abs().max().item()}")
+    f32 = dataclasses.replace(vcfg, amp=False)
+    some = frames[:CPU_REAL_FRAMES] + frames[-CPU_REAL_FRAMES:]
+    card_crops, card_kps = validate_real.predict_real(folded, some, f32, "cuda")
+    cpu_crops, cpu_kps = validate_real.predict_real({k: v.cpu() for k, v in folded.items()}, some, f32, "cpu")
+    crop_err = (card_crops.cpu() - cpu_crops).abs().max().item()
+    kp_err = (card_kps.cpu() - cpu_kps).abs().max().item()
+    log(f"8b predict_real with the plain maxpool: identical keypoints on {n_real} frames; f32 card vs CPU on "
+        f"{len(some)} frames (growing and shrinking): crops max abs {crop_err:.3e}, keypoints {kp_err:.3e} px")
+    # crops within 1e-4: the card's antialiased bilinear kernel sums its taps
+    # in another order than the CPU's (1.9e-5 apart on an H100)
+    if kp_err > 1e-3 or crop_err > 1e-4:
+        raise AssertionError(f"8b: card and CPU disagree: crops {crop_err}, keypoints {kp_err} px")
+    del crops, frames
+
+    # 8c: the augmentation grid's computation
+    vis = visualize.VisualizeConfig()
+    batch = make_batch(GRID_ROWS, 256, 256, 8, seed=8)
+    aug = KeypointAugmentation(vis.augmentation_config, train=vis.train)
+    draws = aug.sample(torch.Generator(device="cuda").manual_seed(vis.seed), GRID_ROWS, 256, 256, 5)
+    _reset_counts()
+    images, coords = visualize.augment_batch(batch, vis, "cuda", draws=draws)
+    torch.cuda.synchronize()
+    counts = _counts()
+    total.update(counts)
+    cpu_images, cpu_coords = visualize.augment_batch(batch, vis, "cpu", draws=aug_pipeline._to(draws, "cpu"))
+    img_err = (images.cpu() - cpu_images).abs().amax(dim=(0, 1, 2)).tolist()
+    crd_err = (coords.cpu() - cpu_coords).abs().max().item()
+    # the same draws with the affine off: the chain and the transplant alone
+    # (each device builds the affine matrices from the draws, ulps apart,
+    # which moves every sample of a warped image by ~1e-5-1e-4 px at this
+    # size: on noise images that is up to ~1e-4 in RGB and ~1e-3 in depth;
+    # the kernel against its plain version on the same matrices is phase 3's)
+    flat = {**draws, "affine": {**draws["affine"], "applied": torch.zeros_like(draws["affine"]["applied"])}}
+    card_flat, _ = visualize.augment_batch(batch, vis, "cuda", draws=flat)
+    cpu_flat, _ = visualize.augment_batch(batch, vis, "cpu", draws=aug_pipeline._to(flat, "cpu"))
+    flat_err = (card_flat.cpu() - cpu_flat).abs().max().item()
+    log(f"8c augmentation grid ({GRID_ROWS}, 5, 256, 256) train mode: launches {counts}; card vs CPU on the same "
+        f"draws: keypoints max abs {crd_err:.3e} px, images per channel {[f'{e:.3e}' for e in img_err]}; with the "
+        f"affine off: images {flat_err:.3e}")
+    if counts != dict(zero, fused_ultra_apply=1) or not torch.isfinite(images).all() or \
+            crd_err > GRID_COORD_ATOL or flat_err > GRID_ATOL:
+        raise AssertionError(f"8c: launches {counts}, keypoints {crd_err} px, images with the affine off {flat_err}")
+
+    # 8d: the live loop without a display
+    sd = resnet.KeypointCNN(n_keypoints=8, num_channels=4, device="cuda",
+                            generator=torch.Generator().manual_seed(0)).state_dict()
+    pipeline = StreamingPipeline(_serving_config(), sd, device="cuda")
+    source = SyntheticSource(height=376, width=672, depth=True, seed=9)
+    live = [source.get_frame() for _ in range(STREAM_FRAMES)]
+
+    class Replay:
+        def __init__(self):
+            self.left = list(live)
+
+        def get_frame(self):
+            return self.left.pop(0)
+
+        def close(self):
+            pass
+
+    _run(pipeline, live[:2])  # warm-up
+    got = []
+    old_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        n = stream_frames(pipeline, Replay(), STREAM_FRAMES, lambda kp, image, pose: got.append((kp, pose)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        total.update(counts)
+        kps, rots, transs, finite = _run(pipeline, live)
+    finally:
+        torch.backends.cudnn.deterministic = old_det
+    same_kp = all(np.array_equal(k, w) for (k, _), w in zip(got, kps.cpu().numpy()))
+    same_pose = all(torch.equal(p.rot, r) and torch.equal(p.trans, t) for (_, p), r, t in zip(got, rots, transs))
+    log(f"8d stream_frames, serving config (GN-4 window 24), {n} frames: {wall / n * 1e3:.3f} ms/frame (host "
+        f"clock, keypoints and image read back each frame); launches {counts}; equal to frame-by-frame calls: "
+        f"keypoints {same_kp}, poses {same_pose}")
+    if n != STREAM_FRAMES or counts != dict(zero, max_pool_3x3_s2=STREAM_FRAMES) or not (finite and same_kp and same_pose):
+        raise AssertionError(f"8d: {n} frames, launches {counts}, finite {finite}, equal {same_kp} {same_pose}")
+    log(f"phase 8 launches, summed over its counted runs: {dict(total)}")
+    return total
+
+
 def _entry(name, source, replaces, launches, err, timing, library_ms):
     t_kernel, t_plain, bound, by = timing
     return {
@@ -1890,6 +2222,7 @@ def main() -> int:
         serving_launches = run("serving", phase_serving)
         run("train loop", phase_train_loop)
         pose_launches, val_launches = run("datagen and eval", phase_datagen_eval)
+        tools = run("eval and runtime tools", phase_eval_tools)
     except Exception as exc:  # report which phase failed, with its traceback
         import traceback
 
@@ -1898,27 +2231,28 @@ def main() -> int:
         return 1
     log(f"maxpool forward launches: {train_counts['max_pool_3x3_s2']} in {TRAIN_STEPS} train steps, "
         f"{serving_launches} in {N_FRAMES} serving frames, {pose_launches} in the pose scorer "
-        f"(a frame each and the cold start's), {val_launches} in validate's val batches")
+        f"(a frame each and the cold start's), {val_launches} in validate's val batches, "
+        f"{tools['max_pool_3x3_s2']} in phase 8")
     pool_src, aug_src = "perseus_tpu_torch/csrc/maxpool.cu", "perseus_tpu_torch/csrc/augment.cu"
     # each kernel timed at the shape of the path that counts it: the ultra
     # kernel and the chain branch take 5 channels, the warp branch 4
     aug = lambda kind, c: augk[(kind, c, torch.float32)]  # noqa: E731
     kernels = [
         _entry("max_pool_3x3_s2", pool_src, "perseus_tpu/models/pool_pallas.py:55",
-               train_counts["max_pool_3x3_s2"] + pose_launches + val_launches, fwd_err,
+               train_counts["max_pool_3x3_s2"] + pose_launches + val_launches + tools["max_pool_3x3_s2"], fwd_err,
                (fwd[0], fwd[1], fwd[3], fwd[4]), fwd[2]),
         _entry("max_pool_3x3_s2_backward", pool_src, "perseus_tpu/models/pool_pallas.py:79",
-               train_counts["max_pool_3x3_s2_backward"], bwd_err, (bwd[0], bwd[1], bwd[3], bwd[4]), bwd[2]),
+               train_counts["max_pool_3x3_s2_backward"] + tools["max_pool_3x3_s2_backward"], bwd_err, (bwd[0], bwd[1], bwd[3], bwd[4]), bwd[2]),
         _entry("fused_apply", aug_src, "perseus_tpu/augment/fused.py:333",
                branch_counts["fused_apply"], aug("chain", 5)[4], aug("chain", 5)[:4], None),
         _entry("fused_warp_apply", aug_src, "perseus_tpu/augment/fused.py:395",
                branch_counts["fused_warp_apply"], aug("warp", 4)[4], aug("warp", 4)[:4], None),
         _entry("fused_ultra_apply", aug_src, "perseus_tpu/augment/fused.py:413",
-               train_counts["fused_ultra_apply"], aug("ultra", 5)[4], aug("ultra", 5)[:4], None),
+               train_counts["fused_ultra_apply"] + tools["fused_ultra_apply"], aug("ultra", 5)[4], aug("ultra", 5)[:4], None),
         # no single PyTorch call computes the two-pass warp (F.grid_sample,
         # logged beside it, is a direct 2-D bilinear warp)
         _entry("warp_affine_two_pass", aug_src, "perseus_tpu/augment/warp_pallas.py:70",
-               unfused_counts["warp_affine_two_pass"], warpk[4], warpk[:4], None),
+               unfused_counts["warp_affine_two_pass"] + tools["warp_affine_two_pass"], warpk[4], warpk[:4], None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

@@ -17,9 +17,13 @@ Rows are channels-last numpy arrays (``image`` (H, W, 3) f32 in [0, 1],
 ``depth_image`` and ``segmentation_image`` (H, W) f32,
 ``pixel_coordinates`` (K, 2), ``weight``). :class:`PrefetchingLoader`
 yields batches of them from a background thread, in an order drawn from
-(seed, epoch). ``KeypointDatasetConfig.native_decode`` and
-``decode_threads`` are accepted and not read: the JAX package's C++ batch
-decoder (``native/io.py``) is not ported.
+(seed, epoch). With ``KeypointDatasetConfig.native_decode`` an HDF5 split
+decodes whole batches (and fills its cache) through the C++ thread-pool
+decoder of ``native/io.py`` (``decode_threads`` threads, 0: one per CPU)
+where it is available, else through PIL, row for row bit-identical; a batch
+in which the decoder reports a failure is decoded again item by item, so
+the error surfaces from PIL. :attr:`PrunedKeypointDataset.decoder` records
+which path a dataset took.
 """
 
 from __future__ import annotations
@@ -45,12 +49,18 @@ class KeypointDatasetConfig:
 
     dataset_path: str = "data/pruned_dataset/pruned.hdf5"
     lazy: bool = True
+    # decode HDF5 batches with the C++ thread-pool decoder (native/io.py)
+    # where it is available; the PIL path otherwise
     native_decode: bool = True
     decode_threads: int = 0  # 0 = one per CPU
 
 
 class PrunedKeypointDataset:
-    """Flat per-image dataset over one split of a pruned dataset."""
+    """Flat per-image dataset over one split of a pruned dataset.
+
+    ``decoder`` is the path its rows come from: "decoded split" (the numpy
+    layout, nothing to decode), "native" (the C++ batch decoder) or "pil".
+    """
 
     def __init__(self, cfg: KeypointDatasetConfig, train: bool = True, cache: bool = False):
         self.cfg = cfg
@@ -74,6 +84,16 @@ class PrunedKeypointDataset:
         self.asset_ids = self.split.asset_ids
         self.weights = self.split.weights
 
+        if self._cache is not None:
+            self.decoder = "decoded split"
+        else:
+            native = False
+            if cfg.native_decode:
+                from perseus_tpu_torch.native import io as native_io
+
+                native = native_io.available()
+            self.decoder = "native" if native else "pil"
+
         # Compact columnar cache: RGB as uint8 (u8 -> f32/255 is the exact
         # decode conversion, so materialized rows are bit-identical to a
         # fresh decode), segmentation as bool, depth as f32. Filled
@@ -87,8 +107,12 @@ class PrunedKeypointDataset:
             }
             step = 2048
             for s in range(0, n, step):
-                items = [self._load(i) for i in range(s, min(s + step, n))]
-                b = {k: np.stack([it[k] for it in items]) for k in items[0]}
+                idx = np.arange(s, min(s + step, n))
+                if self.decoder == "native":
+                    b = self.batch(idx)
+                else:
+                    items = [self._load(int(i)) for i in idx]
+                    b = {k: np.stack([it[k] for it in items]) for k in items[0]}
                 cc["image_u8"][s : s + step] = np.round(b["image"] * 255.0).astype(np.uint8)
                 cc["depth_image"][s : s + step] = b["depth_image"]
                 cc["seg_b"][s : s + step] = b["segmentation_image"] > 0.5
@@ -134,9 +158,34 @@ class PrunedKeypointDataset:
         return self._load(idx)
 
     def batch(self, indices: np.ndarray) -> dict:
-        """Stacks examples into contiguous (B, ...) arrays."""
+        """Stacks examples into contiguous (B, ...) arrays. With the native
+        decoder the whole batch decodes in one GIL-free C++ thread-pool call
+        straight into the output buffers."""
         if self._cache is not None:
             return self._materialize(np.asarray(indices, dtype=np.int64))
+        if self.decoder == "native":
+            from perseus_tpu_torch.native import io as native_io
+
+            idx = [int(i) for i in indices]
+            rgb, depth, seg, failures = native_io.decode_batch(
+                [self._resolve(self.split.image_filenames[i]) for i in idx],
+                [self._resolve(self.split.depth_filenames[i]) for i in idx],
+                [self._resolve(self.split.segmentation_filenames[i]) for i in idx],
+                np.asarray([self.asset_ids[i] for i in idx]),
+                self.H,
+                self.W,
+                threads=self.cfg.decode_threads,
+            )
+            if failures:  # item by item, so that the failing file raises its own error
+                items = [self._load(i) for i in idx]
+                return {k: np.stack([it[k] for it in items]) for k in items[0]}
+            return {
+                "image": rgb,
+                "depth_image": depth,
+                "segmentation_image": seg,
+                "pixel_coordinates": np.stack([self.pixel_coordinates[i] for i in idx]),
+                "weight": np.asarray([self.weights[i] for i in idx], dtype=np.float32),
+            }
         items = [self[int(i)] for i in indices]
         return {k: np.stack([it[k] for it in items]) for k in items[0]}
 

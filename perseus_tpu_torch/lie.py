@@ -1,7 +1,6 @@
 """SO(3)/SE(3) Lie group operations with analytic Jacobians, in PyTorch.
 
-Port of ``perseus_tpu/lie.py`` (the functions that the smoother, the
-renderer, the labeler and the pose evaluation reach). Same
+Port of ``perseus_tpu/lie.py``, every public name of it. Same
 conventions: twists ``xi = [omega; v]``, Jacobians with respect to right
 perturbations, ``se3_exp`` the true SE(3) exponential. Every function
 broadcasts over leading batch dimensions and is safe under ``torch.func``
@@ -20,6 +19,7 @@ __all__ = [
     "SE3",
     "matvec",
     "skew",
+    "unskew",
     "so3_exp",
     "so3_log",
     "so3_left_jacobian",
@@ -83,6 +83,11 @@ def skew(w: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+def unskew(m: torch.Tensor) -> torch.Tensor:
+    """Vee operator: extracts (..., 3) from a skew-symmetric (..., 3, 3)."""
+    return torch.stack([m[..., 2, 1], m[..., 0, 2], m[..., 1, 0]], dim=-1)
 
 
 def _coeffs(theta2: torch.Tensor):

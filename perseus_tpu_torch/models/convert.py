@@ -28,6 +28,7 @@ __all__ = [
     "from_jax_params",
     "from_jax_folded",
     "normalize_reference_sd",
+    "to_reference_sd",
     "load_reference_pth",
     "load_model",
     "convert_opt_state",
@@ -68,6 +69,19 @@ def normalize_reference_sd(raw: Mapping[str, torch.Tensor]) -> dict[str, torch.T
         k = key.removeprefix("module.").removeprefix("resnet.")
         if not k.endswith("num_batches_tracked"):
             out[k] = value.to(torch.float32)
+    return out
+
+
+def to_reference_sd(sd: Mapping[str, torch.Tensor], prefix: str = "resnet.") -> dict[str, torch.Tensor]:
+    """The inverse of :func:`normalize_reference_sd`: the port's state dict
+    -> the reference layout, f32 CPU tensors, keys under ``prefix``, one
+    ``num_batches_tracked`` (0) per BN layer, as the JAX package's
+    ``convert.to_torch_state_dict`` writes them."""
+    out = {}
+    for key, value in sd.items():
+        out[prefix + key] = value.detach().to("cpu", torch.float32).contiguous().clone()
+        if key.endswith("running_var"):
+            out[f"{prefix}{key.rsplit('.', 1)[0]}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
     return out
 
 

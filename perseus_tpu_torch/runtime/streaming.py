@@ -11,11 +11,17 @@ Port of ``perseus_tpu/runtime/streaming.py``. One call per frame runs
 
 with the same ``__call__(frame, carry) -> (keypoints, image, carry, pose)``
 as the JAX pipeline. Nothing in the step reads back to the host.
+
+:func:`stream_frames` is the live loop without a display: frames from a
+source through the pipeline, keypoints and image read back once per frame.
+:func:`run_display_loop` draws them with ``cv2`` (imported inside it: the
+card's machine has none), and :func:`main` runs it on a ZED camera.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Callable
 
 import numpy as np
 import torch
@@ -25,11 +31,12 @@ from perseus_tpu_torch.augment.ops import depth_plane_clamp
 from perseus_tpu_torch.camera import center_crop_hw, denormalize_pixel_coordinates, intrinsics_from_fov
 from perseus_tpu_torch.datagen.labeling import cube_corners
 from perseus_tpu_torch.lie import SE3, se3_identity
-from perseus_tpu_torch.models import convert, resnet
+from perseus_tpu_torch.models import resnet
 from perseus_tpu_torch.smoother.fixed_lag import FixedLagSmoother, SmootherCarry
 from perseus_tpu_torch.smoother.lm import SmootherConfig
+from perseus_tpu_torch.train import checkpoint as ckpt
 
-__all__ = ["StreamingConfig", "StreamingPipeline"]
+__all__ = ["StreamingConfig", "StreamingPipeline", "stream_frames", "run_display_loop", "main"]
 
 
 @dataclass(frozen=True)
@@ -58,7 +65,8 @@ class StreamingPipeline:
 
     ``state_dict`` is the detector's parameters and BN statistics in the
     port's layout (``convert.from_jax_params``, ``KeypointCNN.state_dict()``);
-    when None it is loaded from ``cfg.model_path``.
+    when None it is loaded from ``cfg.model_path``: a port checkpoint
+    directory (what ``train()`` writes) or a ``.pth``.
     """
 
     def __init__(
@@ -70,7 +78,7 @@ class StreamingPipeline:
         self.cfg = cfg
         self.device = resolve_device(device)
         if state_dict is None:
-            state_dict = convert.load_model(cfg.model_path)
+            state_dict = ckpt.load_model(cfg.model_path)
         sd = {k: v.detach().to(self.device, torch.float32) for k, v in state_dict.items()}
         self.folded = resnet.fold_batchnorm(sd)
         self.compute_dtype = torch.bfloat16 if cfg.amp else torch.float32
@@ -116,3 +124,79 @@ class StreamingPipeline:
             carry, pose = self.smoother.update(carry, keypoints)
             return keypoints, image, carry, pose
         return keypoints, image, carry, se3_identity(torch.float32, self.device)
+
+
+def stream_frames(
+    pipeline: StreamingPipeline,
+    source,
+    n_frames: int | None = None,
+    on_frame: Callable[[np.ndarray, np.ndarray, SE3], bool | None] | None = None,
+) -> int:
+    """The live loop without a display: grabs frames from ``source``
+    (a failed grab, ``None``, is skipped), runs each through ``pipeline``
+    from a fresh carry, and hands (keypoints (K, 2), model image (h, w, C),
+    pose) to ``on_frame``, keypoints and image read back to the host once
+    per frame (the pose stays on the pipeline's device). Stops after
+    ``n_frames`` frames (None: no limit) or when ``on_frame`` returns True;
+    returns the frames run."""
+    carry = pipeline.init_carry()
+    done = 0
+    while n_frames is None or done < n_frames:
+        frame = source.get_frame()
+        if frame is None:
+            continue
+        keypoints, image, carry, pose = pipeline(frame, carry)
+        done += 1
+        if on_frame is not None and on_frame(keypoints.cpu().numpy(), image.cpu().numpy(), pose):
+            break
+    return done
+
+
+def run_display_loop(
+    cfg: StreamingConfig,
+    source,
+    device: str | torch.device | None = "cuda",
+    window_name: str = "perseus-tpu stream",
+) -> None:
+    """Live overlay display (needs ``cv2`` and a display): the model image
+    in BGR order, beside it a depth pane (``cv2.normalize`` to 0-255, jet
+    colour map) for RGBD models, the keypoints as filled circles of radius
+    5 (blue on the image, green on depth); ``q`` quits. The model is loaded
+    from ``cfg.model_path``; the source is closed on exit."""
+    import cv2
+
+    pipeline = StreamingPipeline(cfg, device=device)
+    cv2.namedWindow(window_name, cv2.WINDOW_NORMAL)
+
+    def show(keypoints: np.ndarray, image: np.ndarray, pose: SE3) -> bool:
+        rgb = (np.clip(image[..., :3], 0, 1) * 255).astype(np.uint8)
+        panes = [rgb[..., ::-1].copy()]
+        if image.shape[-1] > 3:
+            depth_norm = cv2.normalize(image[..., 3], None, 0, 255, cv2.NORM_MINMAX)
+            panes.append(cv2.applyColorMap(depth_norm.astype(np.uint8), cv2.COLORMAP_JET))
+        for pane, color in zip(panes, ((255, 0, 0), (0, 255, 0))):
+            for kp in keypoints:
+                cv2.circle(pane, (int(kp[0]), int(kp[1])), 5, color, -1)
+        cv2.imshow(window_name, np.hstack(panes))
+        return cv2.waitKey(1) & 0xFF == ord("q")
+
+    try:
+        stream_frames(pipeline, source, on_frame=show)
+    finally:
+        source.close()
+        cv2.destroyAllWindows()
+
+
+def main() -> None:
+    """The live display on the ZED camera of the reference's rig, on the card."""
+    from perseus_tpu_torch.configs.cli import cli
+    from perseus_tpu_torch.runtime.sources import ZEDSource
+
+    cfg = cli(StreamingConfig)
+    device = resolve_device("cuda")  # before the camera opens
+    source = ZEDSource(serial_number=19798856, depth=True)
+    run_display_loop(cfg, source, device)
+
+
+if __name__ == "__main__":
+    main()

@@ -75,8 +75,4 @@ def load_model(path: str) -> dict[str, torch.Tensor]:
 def export_reference_pth(path: str, params: dict, batch_stats: dict) -> None:
     """Writes a reference-format torch checkpoint: keys under ``resnet.``,
     one ``num_batches_tracked`` (0) per BN layer, f32 CPU tensors."""
-    sd = {f"resnet.{k}": v.detach().to("cpu", torch.float32).contiguous().clone() for k, v in params.items()}
-    for k, v in batch_stats.items():
-        sd[f"resnet.{k}"] = v.detach().to("cpu", torch.float32).contiguous().clone()
-        sd.setdefault(f"resnet.{k.rsplit('.', 1)[0]}.num_batches_tracked", torch.tensor(0, dtype=torch.int64))
-    torch.save(sd, path)
+    torch.save(convert.to_reference_sd({**params, **batch_stats}), path)

@@ -8,9 +8,11 @@ import pytest
 import torch
 
 from perseus_tpu_torch import resolve_device
+from perseus_tpu_torch.eval import parity, validate_real, visualize
 from perseus_tpu_torch.models import convert
 from perseus_tpu_torch.models.resnet import KeypointCNN
-from perseus_tpu_torch.runtime.streaming import StreamingConfig, StreamingPipeline
+from perseus_tpu_torch.runtime.sources import SyntheticSource
+from perseus_tpu_torch.runtime.streaming import StreamingConfig, StreamingPipeline, run_display_loop
 from perseus_tpu_torch.train import train
 from perseus_tpu_torch.train.config import TrainConfig
 
@@ -38,9 +40,18 @@ def _imported_modules(path):
                 yield node.args[0].value
 
 
+# the modules of the eval and runtime tools, which the walk below must reach
+TOOLS = (
+    "eval/parity.py", "eval/torch_oracle.py", "eval/validate_real.py", "eval/visualize.py",
+    "runtime/sources.py", "runtime/streaming.py", "native/__init__.py", "native/io.py",
+)
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
     assert len(files) > 10
+    for rel in TOOLS:
+        assert os.path.join(REPO, "perseus_tpu_torch", rel) in files, rel
     bad = [
         f"{os.path.relpath(p, REPO)}: {m}"
         for p in files
@@ -60,6 +71,12 @@ def test_entry_points_raise_without_cuda():
         lambda: StreamingPipeline(StreamingConfig(num_channels=4), {}),
         lambda: convert.from_jax_train_state({}, {}, ()),
         lambda: train.train(TrainConfig()),
+        lambda: parity.run_parity(parity.ParityConfig()),
+        lambda: validate_real.predict_real({}, [], validate_real.ValConfig()),
+        lambda: validate_real.validate(validate_real.ValConfig()),
+        lambda: visualize.augment_batch({}, visualize.VisualizeConfig()),
+        lambda: visualize.visualize_augmentations(visualize.VisualizeConfig()),
+        lambda: run_display_loop(StreamingConfig(), SyntheticSource()),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

@@ -147,3 +147,12 @@ def test_camera_matches_jax(name):
         "center_crop_hw": lambda m, c: m.center_crop_hw(c(image), 6, 9),
     }
     _close(cases[name](tcam, _t), cases[name](jcam, _j), 1e-12, name)
+
+
+def test_unskew_matches_jax():
+    """The vee operator on random skew matrices (and a batch of them):
+    exact, and the inverse of ``skew``."""
+    w = np.random.default_rng(8).normal(size=(2, 5, 3))
+    m = np.asarray(jlie.skew(_j(w)))
+    _close(tlie.unskew(_t(m)), jlie.unskew(_j(m)), 0)
+    _close(tlie.unskew(tlie.skew(_t(w))), w, 0)
