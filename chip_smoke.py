@@ -110,7 +110,25 @@ non-zero exit:
      grid's computation on 16 5-channel rows, #6 once, card vs CPU on the
      same draws (keypoints 1e-4 px; images 1e-5 with the affine off, since
      each device builds the affine matrices ulps apart); (8d) stream_frames over 8 frames in phase 5's serving
-     config, #1 once per frame, equal to frame-by-frame calls.
+     config, #1 once per frame, equal to frame-by-frame calls;
+  9. data parallel, every rank a process of its own (this script with
+     --dp-rank) on cuda:0, a failed rank failing the phase: (9a) two gloo
+     ranks against one rank, 3 f32 steps on one batch (TF32 off, the
+     augmentation in eval mode) from one state: losses rel 1e-5, params and
+     batch stats 1e-5, the replicas bit for bit, #1 and #2 once a step on
+     every rank; (9b) train() at the default TrainConfig, two gloo ranks
+     (128 rows each) over a decoded split of phase 6's size and seed (1,024 + 256 rows), one
+     epoch on the host loader and one on the device-resident split, each
+     against one rank stepping through the same global batches and draws:
+     the first global batch bit for bit, the epoch's loss rel 2e-2 and the
+     params atol 5e-2 (tests/test_distributed.py's tolerances), the val
+     loss against one rank's eval of the same state rel 1e-3, the replicas
+     bit for bit, #6 and #2 once per step and #1 once per step and val
+     batch on every rank; img/s global and per rank, each rank's host share
+     of a step, the all-reduces per step and the gloo all-reduce alone;
+     (9c) NCCL at world size 1 through maybe_initialize_distributed: an
+     all-reduce and a broadcast on the card, then train() on the
+     device-resident split, its img/s.
 
 Prints each phase's wall time, the card line, then one JSON line describing
 each kernel, then, as the last line, {"ok": true, "device": {...}}.
@@ -118,8 +136,10 @@ each kernel, then, as the last line, {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -2182,6 +2202,549 @@ def phase_eval_tools():
     return total
 
 
+DP_WORLD = 2  # phase 9's ranks, sharing cuda:0 through gloo
+DP_STEPS = 3  # 9a's steps
+DP_TIMEOUT = 480  # s: a rank group still running then fails the phase
+DP_TRAIN_EXPECT = {"max_pool_3x3_s2": 5, "max_pool_3x3_s2_backward": 4, "fused_apply": 0, "fused_warp_apply": 0,
+                   "fused_ultra_apply": 4, "warp_affine_two_pass": 0}  # per rank and epoch: 4 steps, 1 val batch
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(task: str, world: int, work: str) -> list:
+    """Runs ``world`` processes of this script as ranks of ``task``
+    (``--dp-rank``), all on cuda:0, and returns their results (``work``/
+    ``<task><r>.json``). A rank that exits non-zero, or a group still
+    running after DP_TIMEOUT s, has every rank killed and fails the phase
+    with the tails of their logs."""
+    port, procs, logs = _free_port(), [], []
+    try:
+        for r in range(world):
+            logs.append(open(os.path.join(work, f"{task}{r}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-rank", task, str(r), str(world), str(port), work],
+                stdout=logs[-1], stderr=subprocess.STDOUT,
+            ))
+        deadline = time.monotonic() + DP_TIMEOUT
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    if any(p.returncode != 0 for p in procs):
+        tails = []
+        for r in range(world):
+            with open(os.path.join(work, f"{task}{r}.log")) as f:
+                tails.append(f"--- rank {r} (exit {procs[r].returncode}):\n" + "".join(f.readlines()[-25:]))
+        raise RuntimeError(f"phase 9 {task}: a rank failed or timed out\n" + "\n".join(tails))
+    out = []
+    for r in range(world):
+        with open(os.path.join(work, f"{task}{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _digest(tensors: dict) -> str:
+    """sha256 over the tensors' bytes in key order: equal digests, equal bits."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(k.encode())
+        h.update(tensors[k].detach().cpu().contiguous().view(-1).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _row_hashes(x) -> list:
+    """A short sha256 of each row (first axis) of a tensor's bytes."""
+    import hashlib
+
+    host = x.detach().cpu().contiguous().numpy()
+    return [hashlib.sha256(row.tobytes()).hexdigest()[:16] for row in host]
+
+
+def _dp_step_setup(work: str):
+    """9a's config, batch and state: TrainConfig at batch 8, 4-channel 32x32
+    random pixels (no pool ties) in f32; the seeded initial params with
+    AdamW moments drawn from a numpy seed (count 10), so that no
+    rounding-level gradient flips an update's sign as AdamW's first step
+    from zero moments would."""
+
+    import numpy as np
+    import torch
+
+    from perseus_tpu_torch.train import train
+    from perseus_tpu_torch.train.config import TrainConfig
+
+    cfg = TrainConfig(batch_size=8, in_channels=4, amp=False)
+    path = os.path.join(work, "step.pt")
+    if not os.path.exists(path):
+        rng = np.random.default_rng(9)
+        images = rng.uniform(0, 1, (8, 4, 32, 32)).astype(np.float32)
+        images[:, 3] = rng.uniform(3.0, 14.0, (8, 32, 32))
+        coords = rng.uniform(2, 29, (8, 8, 2)).astype(np.float32)
+        state = train.init_state(cfg, train.make_optimizer(cfg), "cpu")
+        mom = lambda f: {k: torch.from_numpy(f(v.shape).astype(np.float32)) for k, v in state.params.items()}  # noqa: E731
+        opt = dataclasses.replace(state.opt_state, step=10, exp_avg=mom(lambda sh: rng.normal(0, 1e-3, sh)),
+                                  exp_avg_sq=mom(lambda sh: rng.uniform(1e-6, 1e-4, sh)))
+        torch.save({"state": state._replace(opt_state=opt), "images": torch.from_numpy(images),
+                    "coords": torch.from_numpy(coords)}, path)
+    return cfg, torch.load(path, weights_only=False)
+
+
+def _to_cuda(state):
+    from perseus_tpu_torch.train import train
+
+    move = lambda d: {k: v.to("cuda:0") for k, v in d.items()}  # noqa: E731
+    o = state.opt_state
+    return train.TrainState(move(state.params), move(state.batch_stats),
+                            dataclasses.replace(o, exp_avg=move(o.exp_avg), exp_avg_sq=move(o.exp_avg_sq)))
+
+
+def _dp_steps(cfg, blob, rows):
+    """DP_STEPS train steps of 9a on ``rows`` of its batch, the augmentation
+    in eval mode (f32: the step's convs run with TF32 off): (losses, final
+    state, launches)."""
+    from perseus_tpu_torch.augment.pipeline import KeypointAugmentation
+    from perseus_tpu_torch.train import train
+
+    step = train.make_train_step(cfg, train.make_optimizer(cfg), KeypointAugmentation(cfg.augmentation_config, train=False))
+    state = _to_cuda(blob["state"])
+    images, coords = blob["images"][rows].to("cuda:0"), blob["coords"][rows].to("cuda:0")
+    _reset_counts()
+    losses = []
+    for _ in range(DP_STEPS):
+        state, loss = step(state, images, coords)
+        losses.append(loss.item())
+    return losses, state, _counts()
+
+
+def _dp_rank_step(rank, world, port, work):
+    """9a on one rank: this rank's half of the batch."""
+
+    import torch
+
+    from perseus_tpu_torch.train import train
+
+    cfg, blob = _dp_step_setup(work)
+    train.maybe_initialize_distributed(
+        dataclasses.replace(cfg, coordinator_address=f"localhost:{port}", num_processes=world, process_id=rank),
+        "cuda:0", backend="gloo",
+    )
+    b = cfg.batch_size // world
+    losses, state, counts = _dp_steps(cfg, blob, slice(rank * b, (rank + 1) * b))
+    tensors = {**state.params, **state.batch_stats}
+    if rank == 0:
+        torch.save({k: v.cpu() for k, v in tensors.items()}, os.path.join(work, "step_state.pt"))
+    return {"losses": losses, "digest": _digest(tensors), "counts": counts}
+
+
+def dp_step_check(work: str) -> dict:
+    """9a: DP_STEPS steps at a small f32 config with TF32 off, two gloo ranks
+    on cuda:0 against one rank (this process, no process group) on the same
+    global batch from the same state, the augmentation in eval mode (the
+    JAX package's test_sharded_matches_single_device). Losses to rel 1e-5,
+    params and batch stats to atol 1e-5, the replicas bit for bit; #1 and
+    #2 once per step on every rank. Returns the ranks' launches, summed."""
+
+    import torch
+
+    cfg, blob = _dp_step_setup(work)
+    ranks = _run_ranks("step", DP_WORLD, work)
+    losses, state, counts = _dp_steps(cfg, blob, slice(None))
+    got = torch.load(os.path.join(work, "step_state.pt"))
+    want = {**state.params, **state.batch_stats}
+    err = max((got[k] - v.cpu()).abs().max().item() for k, v in want.items())
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], losses))
+    replicas = len({r["digest"] for r in ranks}) == 1
+    expect = dict({k: 0 for k in counts}, max_pool_3x3_s2=DP_STEPS, max_pool_3x3_s2_backward=DP_STEPS)
+    log(f"9a data-parallel step, {DP_WORLD} gloo ranks on cuda:0 vs one rank, batch {cfg.batch_size} of 4x32x32 f32, "
+        f"TF32 off, {DP_STEPS} steps: losses {ranks[0]['losses']} vs {losses} (max rel {rel:.3e}); params and batch "
+        f"stats max abs {err:.3e}; replicas bit for bit {replicas}; launches per rank {[r['counts'] for r in ranks]}")
+    if rel > 1e-5 or err > 1e-5 or not replicas or any(r["counts"] != expect for r in ranks) or counts != expect:
+        raise AssertionError(f"9a: loss rel {rel}, state {err}, replicas {replicas}, launches "
+                             f"{[r['counts'] for r in ranks]} and {counts}, expected {expect}")
+    return {k: sum(r["counts"][k] for r in ranks) for k in counts}
+
+
+def _dp_train_cfg(split: str):
+    """9b and 9c: the default TrainConfig over the decoded split, one epoch."""
+    from perseus_tpu_torch.data.dataset import KeypointDatasetConfig
+    from perseus_tpu_torch.train.config import TrainConfig
+
+    return TrainConfig(dataset_config=KeypointDatasetConfig(dataset_path=split), n_epochs=1)
+
+
+def _record_train(train):
+    """Wraps ``train.make_train_step`` and ``torch.distributed.all_reduce`` for
+    one train() call: the first step's batch (a copy on the card), the host
+    clock inside the step calls and between them, and the all-reduces'
+    count and bytes. Returns (record, undo)."""
+    import torch.distributed as dist
+
+    rec = {"in": 0.0, "out": 0.0, "steps": 0, "reduces": 0, "bytes": 0}
+    real_make, real_reduce = train.make_train_step, dist.all_reduce
+    last = [None]
+
+    def make(*a, **kw):
+        step = real_make(*a, **kw)
+
+        def timed(state, images_aug, coords, *rest, **kw2):
+            t0 = time.perf_counter()
+            if last[0] is not None:
+                rec["out"] += t0 - last[0]
+            if "images" not in rec:
+                rec["images"], rec["coords"] = images_aug.clone(), coords.clone()
+            out = step(state, images_aug, coords, *rest, **kw2)
+            last[0] = time.perf_counter()
+            rec["in"] += last[0] - t0
+            rec["steps"] += 1
+            return out
+        return timed
+
+    def reduce(tensor, *a, **kw):
+        rec["reduces"] += 1
+        rec["bytes"] += tensor.numel() * tensor.element_size()
+        return real_reduce(tensor, *a, **kw)
+
+    train.make_train_step, dist.all_reduce = make, reduce
+
+    def undo():
+        train.make_train_step, dist.all_reduce = real_make, real_reduce
+
+    return rec, undo
+
+
+def _dp_warmup(cfg, dev):
+    """One train step at the full width on random rows (cuDNN's algorithm
+    choice, the first launches, the collectives), outside every count."""
+    import torch
+
+    from perseus_tpu_torch.augment.pipeline import KeypointAugmentation
+    from perseus_tpu_torch.train import train
+
+    opt = train.make_optimizer(cfg)
+    b, world = cfg.batch_size, train._rank_world()[1]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    images = torch.rand((b // world, 5, cfg.input_resolution, cfg.input_resolution), generator=gen, device=dev)
+    coords = torch.rand((b // world, cfg.n_keypoints, 2), generator=gen, device=dev) * cfg.input_resolution
+    step = train.make_train_step(cfg, opt, KeypointAugmentation(cfg.augmentation_config))
+    _, loss = step(train.init_state(cfg, opt, dev), images, coords, gen)
+    loss.item()
+
+
+def _dp_rank_train(rank, world, port, work):
+    """9b on one rank: train() on the host loader, then on the
+    device-resident split, one epoch each, launches counted inside each
+    call; then the gloo all-reduce alone, at the gradient bucket's size and
+    at a batch norm layer's."""
+
+    import torch
+    import torch.distributed as dist
+
+    from perseus_tpu_torch.train import train
+
+    with open(os.path.join(work, "spec.json")) as f:
+        split = json.load(f)["split"]
+    cfg = dataclasses.replace(_dp_train_cfg(split), coordinator_address=f"localhost:{port}", num_processes=world,
+                              process_id=rank)
+    dev = train.maybe_initialize_distributed(cfg, "cuda:0", backend="gloo")
+    _dp_warmup(cfg, dev)
+    out = {}
+    for mode in ("loader", "dd"):
+        rec, undo = _record_train(train)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        try:
+            res = train.train(dataclasses.replace(cfg, data_on_device=mode == "dd"), "cuda:0")
+        finally:
+            undo()
+        wall = time.perf_counter() - t0
+        st = res["state"]
+        out[mode] = {
+            "run_id": res["run_id"], "counts": _counts(), "wall_s": wall, "history": res["train_loss_history"],
+            "val": res["final_val_loss"], "digest": _digest({**st.params, **st.batch_stats}),
+            "first_rows": _row_hashes(rec["images"]), "first_coords": _row_hashes(rec["coords"]),
+            "step_in_s": rec["in"], "step_out_s": rec["out"], "steps": rec["steps"],
+            "reduces": rec["reduces"], "reduce_bytes": rec["bytes"],
+        }
+        if rank == 0:
+            out[mode]["losses"] = _logged(res["run_id"], "loss")
+            out[mode]["img_s"] = _logged(res["run_id"], "train_images_per_sec")
+            torch.save({k: v.cpu() for k, v in {**st.params, **st.batch_stats}.items()},
+                       os.path.join(work, f"train_{mode}.pt"))
+    # the collective alone: the gradient bucket (loss + every parameter) and a BN layer's sums
+    n = 1 + sum(v.numel() for v in st.params.values())
+    for name, size, reps in (("bucket", n, 5), ("bn", 2 * 512 + 1, 20)):
+        x = torch.ones(size, device=dev)
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            dist.all_reduce(x)
+        torch.cuda.synchronize()
+        out[f"{name}_ms"] = (time.perf_counter() - t0) / reps * 1e3
+    out["bucket_floats"] = n
+    return out
+
+
+def _sharded_draws(aug, seed, step, world, b, h, w, c):
+    """The draws ``world`` ranks make at ``step`` (rank r from
+    step_generator(seed, step, r), on its ``b`` rows), as one global
+    batch's: each rank's block in turn, its donors moved to its rows."""
+    import torch
+
+    from perseus_tpu_torch.train import train
+
+    parts = [aug.sample(train.step_generator(seed, step, "cuda", r), b, h, w, c) for r in range(world)]
+    for r, d in enumerate(parts):
+        d["donor_idx"] = d["donor_idx"] + r * b
+
+    def cat(xs):
+        return {k: cat([x[k] for x in xs]) for k in xs[0]} if isinstance(xs[0], dict) else torch.cat(xs)
+
+    return cat(parts)
+
+
+def _dp_reference(cfg, mode: str, world: int):
+    """The ``world``-rank epoch of 9b in this process, one rank: the same
+    global batches (host loader: its global batches, W-independent;
+    device-resident: the split whole, each step on the rows the ranks'
+    shards give it, in their orders from (seed, epoch, rank)) and the same
+    draws (each block from its rank's generator, donors within the block),
+    one forward and backward over the global batch. Returns (per-step
+    losses, val loss, state, (first batch's row hashes, its keypoints'))."""
+    import numpy as np
+    import torch
+
+    from perseus_tpu_torch.augment.pipeline import KeypointAugmentation
+    from perseus_tpu_torch.data.dataset import PrefetchingLoader, PrunedKeypointDataset
+    from perseus_tpu_torch.train import train
+
+    ds = PrunedKeypointDataset(cfg.dataset_config, train=True)
+    val = PrunedKeypointDataset(cfg.dataset_config, train=False)
+    opt = train.make_optimizer(cfg)
+    state = train.init_state(cfg, opt, "cuda")
+    aug = KeypointAugmentation(cfg.augmentation_config)
+    step = train.make_train_step(cfg, opt, aug)
+    lbs, h, w, c = cfg.batch_size // world, ds.H, ds.W, 5
+    if mode == "loader":
+        def batches():
+            for batch in PrefetchingLoader(ds, cfg.batch_size, shuffle=True, seed=cfg.random_seed).epoch(0):
+                yield (torch.from_numpy(train._prepare_aug_batch(batch, cfg.in_channels, True)).cuda(),
+                       torch.from_numpy(np.asarray(batch["pixel_coordinates"], np.float32)).cuda())
+    else:
+        imgs, crds, _, _, n = train._device_dataset(ds, cfg, "cuda", True)
+        n_local = -(-n // world)
+        perms = [d * n_local + np.random.default_rng((cfg.random_seed, 0, d)).permutation(n_local)
+                 for d in range(world)]
+
+        def batches():
+            for s in range(n_local // lbs):
+                idx = torch.from_numpy(np.concatenate([p[s * lbs : (s + 1) * lbs] for p in perms])).cuda()
+                yield imgs.index_select(0, idx), crds.index_select(0, idx)
+    losses, first = [], None
+    for s, (images, coords) in enumerate(batches()):
+        if first is None:
+            first = (_row_hashes(images), _row_hashes(coords))
+        state, loss = step(state, images, coords, draws=_sharded_draws(aug, cfg.random_seed, s, world, lbs, h, w, c))
+        losses.append(loss.item())
+    return losses, _one_rank_val(cfg, state), state, first
+
+
+def _one_rank_val(cfg, state) -> float:
+    """The val loss of ``state`` on one rank: the val split in global
+    batches through make_eval_step."""
+    import numpy as np
+    import torch
+
+    from perseus_tpu_torch.augment.pipeline import KeypointAugmentation
+    from perseus_tpu_torch.data.dataset import PrefetchingLoader, PrunedKeypointDataset
+    from perseus_tpu_torch.train import train
+
+    val = PrunedKeypointDataset(cfg.dataset_config, train=False)
+    eval_step = train.make_eval_step(cfg, KeypointAugmentation(cfg.augmentation_config, train=False))
+    sums = []
+    for batch in PrefetchingLoader(val, cfg.batch_size, shuffle=False, drop_last=False).epoch(0):
+        images = torch.from_numpy(train._prepare_aug_batch(batch, cfg.in_channels, False)).cuda()
+        coords = torch.from_numpy(np.asarray(batch["pixel_coordinates"], np.float32)).cuda()
+        sums.append(eval_step(state, images, coords, torch.ones(len(images), device="cuda")))
+    return sum(p[0].item() for p in sums) / sum(p[1].item() for p in sums)
+
+
+def dp_train_check(work: str, split: str) -> dict:
+    """9b: train() at the default TrainConfig (global batch 256, 128 a rank,
+    5-channel 256x256, bf16 convs, the fused ultra augmentation) over the
+    decoded split, two gloo ranks on cuda:0, one epoch on the host loader
+    and one on the device-resident split. Each against the same epoch on
+    one rank (_dp_reference): the first global batch bit for bit, the
+    epoch's train loss and the params at tests/test_distributed.py's
+    tolerances (rel 2e-2, atol 5e-2); the ranks' val loss against one rank's
+    eval of the same final state, rel 1e-3 (bf16 convs at batch 128 and
+    256); params and batch stats equal on the ranks bit for bit; #6, #2
+    once per step and #1 once per step and val batch on every rank. The
+    val loss of the one-rank run's own final state is logged, not held:
+    after 4 updates from their init the eval-mode BN running stats carry
+    the trajectories' rounding-level parting (bf16 convs at batch 128 and
+    256, then AdamW's sign flips; ROADMAP.md Queue C). Logs img/s (global
+    and per rank), each rank's host share of a step, and the all-reduces
+    per step with the gloo all-reduce's time alone. Returns the ranks'
+    launches, summed, and the runs' ids."""
+    import numpy as np
+    import torch
+
+    with open(os.path.join(work, "spec.json"), "w") as f:
+        json.dump({"split": split}, f)
+    ranks = _run_ranks("train", DP_WORLD, work)
+    cfg = _dp_train_cfg(split)
+    total = {k: 0 for k in DP_TRAIN_EXPECT}
+    bucket_ms, bn_ms = ranks[0]["bucket_ms"], ranks[0]["bn_ms"]
+    for mode in ("loader", "dd"):
+        a = [r[mode] for r in ranks]
+        losses, val, state, first = _dp_reference(cfg, mode, DP_WORLD)
+        got = torch.load(os.path.join(work, f"train_{mode}.pt"))
+        same_state = state._replace(params={k: got[k].cuda() for k in state.params},
+                                    batch_stats={k: got[k].cuda() for k in state.batch_stats})
+        val_same = _one_rank_val(cfg, same_state)
+        val_same_rel = abs(a[0]["val"] - val_same) / abs(val_same)
+        param_err = max((got[k] - v.cpu()).abs().max().item() for k, v in state.params.items())
+        stats_err = max((got[k] - v.cpu()).abs().max().item() for k, v in state.batch_stats.items())
+        rows_equal = sum((r["first_rows"] for r in a), []) == first[0]
+        coords_equal = sum((r["first_coords"] for r in a), []) == first[1]
+        replicas = len({r["digest"] for r in a}) == 1 and len({tuple(r["history"]) for r in a}) == 1
+        epoch_rel = abs(a[0]["history"][0] - np.mean(losses)) / abs(np.mean(losses))
+        val_rel = abs(a[0]["val"] - val) / abs(val)
+        steps = a[0]["steps"]
+        host_share = [r["step_out_s"] / (r["step_in_s"] + r["step_out_s"]) for r in a]
+        per_step = [r["reduces"] / steps for r in a]
+        mb = a[0]["reduce_bytes"] / steps / 1e6
+        img_s = a[0]["img_s"][0]
+        log(f"9b train() {mode}, {DP_WORLD} gloo ranks on cuda:0, default TrainConfig (global batch {cfg.batch_size}, "
+            f"{cfg.batch_size // DP_WORLD} a rank), 1 epoch of {steps} steps: first global batch equal to one rank's, "
+            f"rows {rows_equal}, keypoints {coords_equal}; replicas bit for bit {replicas}; per-step losses "
+            f"{a[0]['losses']} vs one rank's {losses} (first step rel {abs(a[0]['losses'][0] - losses[0]) / losses[0]:.3e}, "
+            f"epoch rel {epoch_rel:.3e}); params max abs {param_err:.3e}, batch stats {stats_err:.3e}; val "
+            f"{a[0]['val']:.6f}, one rank's eval of the same state {val_same:.6f} (rel {val_same_rel:.3e}), the one-rank "
+            f"run's own {val:.6f} (rel {val_rel:.3e}); launches per rank {[r['counts'] for r in a]}")
+        log(f"9b {mode} on {card_line()}: {img_s:.1f} img/s global, {img_s / DP_WORLD:.1f} per rank (rank 0's "
+            f"metrics.jsonl; train() wall {[round(r['wall_s'], 3) for r in a]} s); host share of a step (host clock "
+            f"between step calls / inside and between) {[round(x, 4) for x in host_share]}; all-reduces per step "
+            f"{per_step} ({mb:.3f} MB a rank), gloo all-reduce alone {bucket_ms:.3f} ms for the {ranks[0]['bucket_floats']}"
+            f"-float gradient bucket, {bn_ms:.3f} ms for a BN layer's 1,025 floats")
+        ok = (rows_equal and coords_equal and replicas and epoch_rel <= 2e-2 and val_same_rel <= 1e-3
+              and param_err <= 5e-2 and all(r["counts"] == DP_TRAIN_EXPECT for r in a))
+        if not ok:
+            raise AssertionError(f"9b {mode}: rows {rows_equal} {coords_equal}, replicas {replicas}, epoch rel "
+                                 f"{epoch_rel}, val rel {val_same_rel} (same state), params {param_err}, launches "
+                                 f"{[r['counts'] for r in a]}, expected {DP_TRAIN_EXPECT}")
+        for r in a:
+            for k in total:
+                total[k] += r["counts"][k]
+    return total, [ranks[0][m]["run_id"] for m in ("loader", "dd")]
+
+
+def _dp_rank_nccl(rank, world, port, work):
+    """9c: one rank through maybe_initialize_distributed on bare "cuda"
+    (NCCL); an all-reduce and a broadcast on the card; train() on the
+    device-resident split, 2 epochs (the first warms up)."""
+
+    import torch
+    import torch.distributed as dist
+
+    from perseus_tpu_torch.train import train
+
+    with open(os.path.join(work, "spec.json")) as f:
+        split = json.load(f)["split"]
+    cfg = dataclasses.replace(_dp_train_cfg(split), coordinator_address=f"localhost:{port}", num_processes=world,
+                              process_id=rank, data_on_device=True, n_epochs=2)
+    dev = train.maybe_initialize_distributed(cfg, "cuda")
+    x = torch.arange(4.0, device=dev)
+    dist.all_reduce(x)
+    dist.broadcast(x, src=0)
+    _reset_counts()
+    res = train.train(cfg, "cuda")
+    counts = _counts()
+    backend = dist.get_backend()
+    dist.destroy_process_group()
+    return {"backend": backend, "device": str(dev), "reduced": x.tolist(), "counts": counts, "run_id": res["run_id"],
+            "img_s": _logged(res["run_id"], "train_images_per_sec"), "history": res["train_loss_history"]}
+
+
+def phase_data_parallel():
+    """Phase 9: data parallel. 9a the step (dp_step_check), 9b train()
+    (dp_train_check) over a decoded split of LOOP_ROWS + LOOP_VAL_ROWS rows,
+    9c NCCL at world size 1. Every rank a process of its own on cuda:0;
+    the split, the runs' directories and the ranks' files are deleted at
+    the end. Returns the launches of #1, #2 and #6 summed over the ranks."""
+    import shutil
+    import tempfile
+
+    from perseus_tpu_torch import ROOT
+    from perseus_tpu_torch.data.synthetic import generate_synthetic_decoded_split
+    from perseus_tpu_torch.train.config import TrainConfig
+
+    base = TrainConfig()
+    os.makedirs(os.path.join(ROOT, "outputs"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="smoke_dp_", dir=os.path.join(ROOT, "outputs"))
+    run_ids = []
+    try:
+        total = dp_step_check(tmp)
+        split = generate_synthetic_decoded_split(
+            os.path.join(tmp, "split"), LOOP_ROWS, LOOP_VAL_ROWS, base.input_resolution, base.input_resolution,
+            base.n_keypoints, seed=base.random_seed,
+        )
+        counts, ids = dp_train_check(tmp, split)
+        run_ids += ids
+        for k, v in counts.items():
+            total[k] += v
+        (nccl,) = _run_ranks("nccl", 1, tmp)
+        run_ids.append(nccl["run_id"])
+        expect = {k: 2 * v for k, v in DP_TRAIN_EXPECT.items()}
+        log(f"9c NCCL at world size 1 through maybe_initialize_distributed(cfg, 'cuda'): backend {nccl['backend']} on "
+            f"{nccl['device']}, all-reduce + broadcast of [0, 1, 2, 3] -> {nccl['reduced']}; train() on the "
+            f"device-resident split, 2 epochs: img/s {[round(x, 1) for x in nccl['img_s']]} on {card_line()} (phase 6's "
+            f"one-card figure beside it: its device-resident epoch call); losses {nccl['history']}; launches "
+            f"{nccl['counts']}")
+        if nccl["backend"] != "nccl" or nccl["reduced"] != [0.0, 1.0, 2.0, 3.0] or nccl["counts"] != expect:
+            raise AssertionError(f"9c: {nccl}, launches expected {expect}")
+        for k in total:
+            total[k] += nccl["counts"][k]
+        log(f"phase 9 launches, summed over the ranks of its counted runs: {total}")
+        return total
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        for run_id in run_ids:
+            for kind in ("models", "runs"):
+                shutil.rmtree(os.path.join(ROOT, "outputs", kind, run_id), ignore_errors=True)
+
+
+DP_TASKS = {"step": _dp_rank_step, "train": _dp_rank_train, "nccl": _dp_rank_nccl}
+
+
+def dp_rank_main(argv) -> int:
+    """``chip_smoke.py --dp-rank <task> <rank> <world> <port> <work dir>``:
+    one rank of a phase-9 task; writes its results to
+    ``<work dir>/<task><rank>.json``."""
+    task, rank, world, port, work = argv[0], int(argv[1]), int(argv[2]), argv[3], argv[4]
+    out = DP_TASKS[task](rank, world, port, work)
+    with open(os.path.join(work, f"{task}{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
 def _entry(name, source, replaces, launches, err, timing, library_ms):
     t_kernel, t_plain, bound, by = timing
     return {
@@ -2223,6 +2786,7 @@ def main() -> int:
         run("train loop", phase_train_loop)
         pose_launches, val_launches = run("datagen and eval", phase_datagen_eval)
         tools = run("eval and runtime tools", phase_eval_tools)
+        dp = run("data parallel", phase_data_parallel)
     except Exception as exc:  # report which phase failed, with its traceback
         import traceback
 
@@ -2232,23 +2796,26 @@ def main() -> int:
     log(f"maxpool forward launches: {train_counts['max_pool_3x3_s2']} in {TRAIN_STEPS} train steps, "
         f"{serving_launches} in {N_FRAMES} serving frames, {pose_launches} in the pose scorer "
         f"(a frame each and the cold start's), {val_launches} in validate's val batches, "
-        f"{tools['max_pool_3x3_s2']} in phase 8")
+        f"{tools['max_pool_3x3_s2']} in phase 8, {dp['max_pool_3x3_s2']} on phase 9's ranks")
     pool_src, aug_src = "perseus_tpu_torch/csrc/maxpool.cu", "perseus_tpu_torch/csrc/augment.cu"
     # each kernel timed at the shape of the path that counts it: the ultra
     # kernel and the chain branch take 5 channels, the warp branch 4
     aug = lambda kind, c: augk[(kind, c, torch.float32)]  # noqa: E731
     kernels = [
         _entry("max_pool_3x3_s2", pool_src, "perseus_tpu/models/pool_pallas.py:55",
-               train_counts["max_pool_3x3_s2"] + pose_launches + val_launches + tools["max_pool_3x3_s2"], fwd_err,
+               train_counts["max_pool_3x3_s2"] + pose_launches + val_launches + tools["max_pool_3x3_s2"]
+               + dp["max_pool_3x3_s2"], fwd_err,
                (fwd[0], fwd[1], fwd[3], fwd[4]), fwd[2]),
         _entry("max_pool_3x3_s2_backward", pool_src, "perseus_tpu/models/pool_pallas.py:79",
-               train_counts["max_pool_3x3_s2_backward"] + tools["max_pool_3x3_s2_backward"], bwd_err, (bwd[0], bwd[1], bwd[3], bwd[4]), bwd[2]),
+               train_counts["max_pool_3x3_s2_backward"] + tools["max_pool_3x3_s2_backward"]
+               + dp["max_pool_3x3_s2_backward"], bwd_err, (bwd[0], bwd[1], bwd[3], bwd[4]), bwd[2]),
         _entry("fused_apply", aug_src, "perseus_tpu/augment/fused.py:333",
                branch_counts["fused_apply"], aug("chain", 5)[4], aug("chain", 5)[:4], None),
         _entry("fused_warp_apply", aug_src, "perseus_tpu/augment/fused.py:395",
                branch_counts["fused_warp_apply"], aug("warp", 4)[4], aug("warp", 4)[:4], None),
         _entry("fused_ultra_apply", aug_src, "perseus_tpu/augment/fused.py:413",
-               train_counts["fused_ultra_apply"] + tools["fused_ultra_apply"], aug("ultra", 5)[4], aug("ultra", 5)[:4], None),
+               train_counts["fused_ultra_apply"] + tools["fused_ultra_apply"] + dp["fused_ultra_apply"],
+               aug("ultra", 5)[4], aug("ultra", 5)[:4], None),
         # no single PyTorch call computes the two-pass warp (F.grid_sample,
         # logged beside it, is a direct 2-D bilinear warp)
         _entry("warp_affine_two_pass", aug_src, "perseus_tpu/augment/warp_pallas.py:70",
@@ -2261,4 +2828,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(dp_rank_main(sys.argv[2:]) if sys.argv[1:2] == ["--dp-rank"] else main())

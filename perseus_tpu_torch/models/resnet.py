@@ -9,7 +9,10 @@ package's dicts, in PyTorch layouts: activations NCHW, conv weights OIHW,
 ``fc.weight`` (out, in).
 
   * :func:`keypoint_cnn_apply`: the forward with batch norm in train mode
-    (batch statistics, running-stat update) or eval mode;
+    (batch statistics, running-stat update) or eval mode; in a process
+    group of more than one rank (data-parallel training), train mode's
+    statistics are those of the global batch, as the JAX package's mesh
+    gives them;
   * :func:`fold_batchnorm` + :func:`keypoint_cnn_apply_folded`: inference
     with BN folded into conv weight and bias, the serving path;
   * :class:`KeypointCNN`: an ``nn.Module`` holding the parameters, whose
@@ -28,6 +31,7 @@ import contextlib
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -77,23 +81,48 @@ def _conv(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int, compute_d
     return F.conv2d(x.to(compute_dtype), w.to(compute_dtype), stride=stride, padding=padding)
 
 
+def _world_size() -> int:
+    """The data-parallel world: the active process group's size, 1 without one."""
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
 def _batchnorm(x: torch.Tensor, sd: dict, prefix: str, train: bool, new_stats: dict | None):
     """torch BN semantics (eps 1e-5, momentum 0.1; biased batch variance to
     normalize, unbiased for the running-stat update), computed as the JAX
     package does: the batch variance as E[y^2] - E[y]^2 of y = x - running
-    mean, accumulated in at least f32."""
+    mean, accumulated in at least f32.
+
+    In a process group of more than one rank, the batch is the global one:
+    the per-channel sums of y and y^2 and the element count are all-reduced
+    (SyncBatchNorm's arithmetic; the autograd all-reduce carries the
+    cross-rank terms into the backward), so every rank normalizes with, and
+    updates the running stats to, the same global statistics."""
     gamma = sd[f"{prefix}.weight"]
     beta = sd[f"{prefix}.bias"]
     acc_dtype = torch.promote_types(x.dtype, torch.float32)
     if train:
         rm = sd[f"{prefix}.running_mean"].to(acc_dtype)
         yf = x.to(acc_dtype) - rm[:, None, None]
-        mean_y = torch.mean(yf, dim=(0, 2, 3))
-        var = torch.clamp_min(torch.mean(yf * yf, dim=(0, 2, 3)) - mean_y * mean_y, 0.0)
+        if _world_size() > 1:
+            from torch.distributed.nn.functional import all_reduce
+
+            c = yf.shape[1]
+            n = x.shape[0] * x.shape[2] * x.shape[3]
+            count = torch.full((1,), float(n), dtype=acc_dtype, device=yf.device)
+            sums = all_reduce(torch.cat([torch.sum(yf, dim=(0, 2, 3)), torch.sum(yf * yf, dim=(0, 2, 3)), count]))
+            n_all = sums[2 * c]
+            mean_y = sums[:c] / n_all
+            var = torch.clamp_min(sums[c : 2 * c] / n_all - mean_y * mean_y, 0.0)
+            # the global count stays on the device: no read-back per layer
+            bessel = n_all / torch.clamp_min(n_all - 1, 1)
+        else:
+            mean_y = torch.mean(yf, dim=(0, 2, 3))
+            var = torch.clamp_min(torch.mean(yf * yf, dim=(0, 2, 3)) - mean_y * mean_y, 0.0)
+            n = x.shape[0] * x.shape[2] * x.shape[3]
+            bessel = n / max(n - 1, 1)
         mean = mean_y + rm
         if new_stats is not None:
-            n = x.shape[0] * x.shape[2] * x.shape[3]
-            unbiased = var * (n / max(n - 1, 1))
+            unbiased = var * bessel
             m = BN_MOMENTUM
             new_stats[f"{prefix}.running_mean"] = (
                 (1 - m) * sd[f"{prefix}.running_mean"] + m * mean

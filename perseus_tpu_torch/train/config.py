@@ -4,13 +4,14 @@ packages unchanged; ``KeypointDatasetConfig`` is
 :mod:`perseus_tpu_torch.data.dataset`'s.
 
 ``train/train.py::train`` reads every field but these, which the port takes
-and does not read: ``multigpu`` (one card; data parallelism is a later
-slice, which ``distributed`` and ``coordinator_address`` raise for, and
-``num_processes`` and ``process_id`` belong to), ``rng_impl`` (the port's
-per-step generators are ``step_generator(random_seed, step)``) and
+and does not read: ``multigpu`` (a process drives one card; data
+parallelism is one process per rank, brought up from ``distributed``,
+``coordinator_address``, ``num_processes`` and ``process_id``),
+``rng_impl`` (the port's per-step generators are
+``step_generator(random_seed, step, rank)``) and
 ``dataset_config.native_decode`` / ``decode_threads`` / ``lazy``. The
 comments below are the JAX package's, and name its hardware where it had
-one.
+one, except the data-parallel fields', which say what the port does.
 """
 
 from __future__ import annotations
@@ -166,15 +167,15 @@ class TrainConfig:
     # 1e-4, so this is passed explicitly to keep the recipes equivalent.
     weight_decay: float = 1e-2
 
-    # Multi-host (DCN) wiring — the role of the reference's TCP rendezvous /
-    # torch.distributed init (reference: train.py:122-152). When
-    # ``coordinator_address`` is set (host:port), train() calls
-    # ``jax.distributed.initialize(coordinator_address, num_processes,
-    # process_id)`` before touching any device; each process then loads its
-    # shard of the global batch (shard_index=process_index) and the jitted
-    # step's psum rides ICI within hosts and DCN across them. On TPU pods
-    # with the standard metadata environment, leave these unset and set
-    # ``distributed=True`` to use jax.distributed's auto-detection.
+    # Data-parallel wiring — the role of the reference's TCP rendezvous /
+    # torch.distributed init (reference: train.py:122-152). train() calls
+    # ``maybe_initialize_distributed`` before touching any card: with
+    # ``coordinator_address`` set (host:port), ``init_process_group`` meets
+    # at ``tcp://coordinator_address`` with ``num_processes`` ranks, this
+    # one ``process_id``; with bare ``distributed=True`` it reads torchrun's
+    # environment (``env://``). Each rank then loads its shard of every
+    # global batch, batch norm takes the global batch's statistics, and the
+    # gradients are all-reduced (NCCL between cards, gloo on the CPU).
     distributed: bool = False
     coordinator_address: str = ""
     num_processes: int = -1

@@ -22,8 +22,20 @@ EMA, checkpoints every ``save_epochs`` and exact ``resume``
 (:func:`make_device_data_epoch_fn`) and the eval step over a val split
 (:func:`make_device_data_eval_step`, batches from
 :func:`eval_index_batches`). The state is functional, as in JAX: a step
-returns a new :class:`TrainState` and leaves its input unchanged. Data
-parallelism (``cfg.distributed``) is not ported yet.
+returns a new :class:`TrainState` and leaves its input unchanged.
+
+Data parallelism (``cfg.distributed`` / ``cfg.coordinator_address``): one
+process per rank, ``torch.distributed`` brought up by
+:func:`maybe_initialize_distributed`, with the JAX mesh's semantics. Each
+rank augments its own block of the global batch (its generator keyed on
+(seed, step, rank), transplant donors from its own rows); batch norm takes
+the global batch's statistics (``models/resnet.py``); the loss, the
+example and corner weights' means and the val sums are global; the
+gradients are all-reduced in one flat bucket before the global-norm clip,
+so every rank takes the same update. The host loader and the
+device-resident split are sharded per rank; rank 0 alone logs and saves.
+Only ``all_reduce`` and ``broadcast`` are used, so gloo can carry CUDA
+tensors (two ranks sharing one card) as well as NCCL.
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from perseus_tpu_torch import ROOT, resolve_device
 from perseus_tpu_torch.augment.pipeline import KeypointAugmentation
@@ -62,6 +75,7 @@ __all__ = [
     "make_device_data_eval_step",
     "eval_index_batches",
     "make_sample_weights",
+    "maybe_initialize_distributed",
     "train",
     "main",
 ]
@@ -69,6 +83,22 @@ __all__ = [
 
 def _is_stat(key: str) -> bool:
     return key.endswith(("running_mean", "running_var"))
+
+
+def _rank_world() -> tuple[int, int]:
+    """(rank, world size) of the active process group; (0, 1) without one."""
+    world = resnet._world_size()
+    return (dist.get_rank() if world > 1 else 0), world
+
+
+def _global_mean(t: torch.Tensor, world: int) -> torch.Tensor:
+    """The mean of a data tensor (no gradient) over the global batch, whose
+    rank blocks are all of ``t``'s shape."""
+    if world == 1:
+        return torch.mean(t)
+    total = torch.sum(t).reshape(1)
+    dist.all_reduce(total)
+    return total[0] / (t.numel() * world)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -264,12 +294,20 @@ def make_loss_and_grads(cfg: TrainConfig, train_augment: KeypointAugmentation):
     example weights (required with ``cfg.use_example_weights``). ``draws``
     replaces sampling from ``gen`` by given draws (``train_augment.sample``'s
     dict), so a test can apply the JAX pipeline's draws.
+
+    In a process group of W > 1 ranks the arguments are this rank's block
+    of the global batch (all blocks of one size), and the results are the
+    global batch's, the same on every rank: the weights' means are global,
+    each rank back-propagates its share (its batch means / W) through the
+    global batch norm, and the loss and the gradients are summed over the
+    ranks in one all-reduce.
     """
     compute_dtype = torch.bfloat16 if cfg.amp else torch.float32
 
     def loss_and_grads(state: TrainState, images_aug, coords, gen=None, weights=None, draws=None):
         if cfg.use_example_weights and weights is None:
             raise ValueError("cfg.use_example_weights: the step needs the batch's weights")
+        world = resnet._world_size()
         b, c, h, w = images_aug.shape
         if draws is None:
             draws = train_augment.sample(gen, b, h, w, c)
@@ -285,7 +323,7 @@ def make_loss_and_grads(cfg: TrainConfig, train_augment: KeypointAugmentation):
             out = torch.any(torch.abs(target) > 1.0, dim=-1)  # (B, K)
             cw = torch.where(out, cfg.outframe_corner_weight, 1.0).to(target.dtype)
             corner_w = torch.repeat_interleave(cw, 2, dim=-1)
-            corner_w = corner_w / torch.clamp_min(torch.mean(corner_w), 1e-12)
+            corner_w = corner_w / torch.clamp_min(_global_mean(corner_w, world), 1e-12)
         if cfg.outframe_clamp_px >= 0:
             mm = torch.tensor(
                 [2.0 * cfg.outframe_clamp_px / (w_img - 1.0), 2.0 * cfg.outframe_clamp_px / (h_img - 1.0)],
@@ -311,9 +349,9 @@ def make_loss_and_grads(cfg: TrainConfig, train_augment: KeypointAugmentation):
             if corner_w is not None:
                 per_coord = per_coord * corner_w
             per_example = torch.mean(per_coord, dim=-1)
-            wnorm = weights / torch.clamp_min(torch.mean(weights), 1e-12)
+            wnorm = weights / torch.clamp_min(_global_mean(weights, world), 1e-12)
             wnorm = torch.clamp_max(wnorm, cfg.example_weight_clip)
-            wnorm = wnorm / torch.clamp_min(torch.mean(wnorm), 1e-12)
+            wnorm = wnorm / torch.clamp_min(_global_mean(wnorm, world), 1e-12)
             return torch.mean(per_example * wnorm) + aux
 
         keys = list(state.params)
@@ -325,8 +363,18 @@ def make_loss_and_grads(cfg: TrainConfig, train_augment: KeypointAugmentation):
                 compute_dtype=compute_dtype, s2d_stem=cfg.s2d_stem,
             )
             loss = loss_fn(pred)
+            if world > 1:
+                loss = loss / world  # this rank's share of the global batch's means
             grads = torch.autograd.grad(loss, [params[k] for k in keys])
-        return loss.detach(), dict(zip(keys, grads)), new_stats
+        loss = loss.detach()
+        if world > 1:
+            # one bucket: the loss and every gradient, summed over the ranks
+            flat = torch.cat([loss.reshape(1)] + [g.reshape(-1) for g in grads])
+            dist.all_reduce(flat)
+            loss = flat[0]
+            parts = torch.split(flat[1:], [g.numel() for g in grads])
+            grads = [p.view_as(g) for p, g in zip(parts, grads)]
+        return loss, dict(zip(keys, grads)), new_stats
 
     return loss_and_grads
 
@@ -348,7 +396,9 @@ def make_train_step(cfg: TrainConfig, optimizer: ClipAdamW, train_augment: Keypo
 def make_eval_step(cfg: TrainConfig, val_augment: KeypointAugmentation):
     """``step(state, images, coords, weights) -> (loss_sum, count)``:
     per-example SmoothL1 means weighted by ``weights`` (0 marks padding
-    rows), the model in eval mode after the val augmentation."""
+    rows), the model in eval mode after the val augmentation. In a process
+    group of W > 1 ranks, each passes its block of the batch and gets the
+    global batch's sum and count."""
     compute_dtype = torch.bfloat16 if cfg.amp else torch.float32
 
     @torch.no_grad()
@@ -361,17 +411,26 @@ def make_eval_step(cfg: TrainConfig, val_augment: KeypointAugmentation):
             compute_dtype=compute_dtype, s2d_stem=cfg.s2d_stem,
         )
         per_elem = torch.mean(_huber(pred, target), dim=-1)
-        return torch.sum(per_elem * weights), torch.sum(weights)
+        loss_sum, count = torch.sum(per_elem * weights), torch.sum(weights)
+        if resnet._world_size() > 1:
+            pair = torch.stack([loss_sum, count])
+            dist.all_reduce(pair)
+            loss_sum, count = pair[0], pair[1]
+        return loss_sum, count
 
     return step
 
 
-def step_generator(run_seed: int, step: int, device) -> torch.Generator:
+def step_generator(run_seed: int, step: int, device, rank: int = 0) -> torch.Generator:
     """The augmentation's generator of global step ``step`` on ``device``,
     seeded from (run seed, step) alone: the counterpart of JAX's
     ``fold_in(run_key, step)``, so a step makes the same draws whether it
-    runs inside an epoch call or on its own."""
-    seed = int(np.random.SeedSequence([run_seed, step]).generate_state(1, np.uint64)[0]) >> 1
+    runs inside an epoch call or on its own. Rank ``r`` > 0 of a
+    data-parallel run draws from (run seed, step, r), the counterpart of
+    ``make_sharded_augment``'s ``fold_in(key, shard)``: an independent
+    stream per rank, rank 0's (and one rank's) unchanged."""
+    key = [run_seed, step] if rank == 0 else [run_seed, step, rank]
+    seed = int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0]) >> 1
     return torch.Generator(device=torch.device(device)).manual_seed(seed)
 
 
@@ -399,15 +458,17 @@ def make_device_data_epoch_fn(cfg: TrainConfig, optimizer: ClipAdamW, train_augm
     ``epoch_fn(state, ds_images, ds_coords, idx_epoch, run_seed, base_step,
     ds_weights=None) -> (state, losses)``. Step ``s`` takes rows
     ``idx_epoch[s]`` of the (steps, B) index tensor with the generator
-    :func:`step_generator` (run_seed, base_step + s) on the split's device,
-    the same draws and data order as calling the step alone. ``losses`` is
-    one (steps,) tensor on the device (one read-back per epoch)."""
+    :func:`step_generator` (run_seed, base_step + s, this rank) on the
+    split's device, the same draws and data order as calling the step
+    alone. ``losses`` is one (steps,) tensor on the device (one read-back
+    per epoch)."""
     dd_step = make_device_data_train_step(cfg, optimizer, train_augment)
 
     def epoch_fn(state: TrainState, ds_images, ds_coords, idx_epoch, run_seed: int, base_step: int, ds_weights=None):
+        rank, _ = _rank_world()
         losses = []
         for s in range(idx_epoch.shape[0]):
-            gen = step_generator(run_seed, base_step + s, ds_images.device)
+            gen = step_generator(run_seed, base_step + s, ds_images.device, rank)
             state, loss = dd_step(state, ds_images, ds_coords, idx_epoch[s], gen, ds_weights)
             losses.append(loss)
         return state, torch.stack(losses)
@@ -497,17 +558,25 @@ def _device_dataset(
     use_transplant: bool,
     chunk: int = 128,
     subset: np.ndarray | None = None,
+    rank: int = 0,
+    world: int = 1,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, np.ndarray, int]:
-    """Decodes a split (or its rows ``subset``) onto ``device``: the (N, C,
-    H, W) augmentation input in ``cfg.device_data_dtype``, (N, K, 2) f32
-    keypoints and (N,) f32 example weights. The images are decoded and
-    uploaded ``chunk`` rows at a time into a buffer allocated on the device
-    first (~170 MB a chunk at 256x256x5 f32), so the host never holds the
-    split. Returns (images, coords, weights, valid, n_local): ``valid`` (a
-    host array) flags real rows, all of them on one card, and ``n_local``
-    is the rows held."""
+    """Decodes rank ``rank``'s shard of a split (or of its rows ``subset``)
+    onto ``device``: the (N, C, H, W) augmentation input in
+    ``cfg.device_data_dtype``, (N, K, 2) f32 keypoints and (N,) f32 example
+    weights. The resident rows are wrap-padded to ``world`` shards of
+    ``n_local`` rows and this rank decodes only its own, laid out as
+    :func:`_device_local_rows` ``[rank]`` (the JAX package's sharded
+    split); one rank holds them all. The images are decoded and uploaded
+    ``chunk`` rows at a time into a buffer allocated on the device first
+    (~170 MB a chunk at 256x256x5 f32), so the host never holds the split.
+    Returns (images, coords, weights, valid, n_local): ``valid`` (a host
+    array) flags real rows (0 for the wrap-padding), and ``n_local`` is the
+    rows held."""
     dev = resolve_device(device)
-    order = np.arange(len(dataset)) if subset is None else np.asarray(subset)
+    n_res = len(dataset) if subset is None else len(subset)
+    n_local = -(-n_res // world)
+    order = _device_local_rows(world, n_local, len(dataset), subset)[rank]
     n = len(order)
     c = _aug_channels(cfg.in_channels, use_transplant)
     images = torch.empty((n, c, dataset.H, dataset.W), dtype=getattr(torch, cfg.device_data_dtype), device=dev)
@@ -518,7 +587,8 @@ def _device_dataset(
         coords.append(np.asarray(batch["pixel_coordinates"], np.float32))
     d_coords = torch.from_numpy(np.concatenate(coords)).to(dev)
     d_weights = torch.from_numpy(np.asarray(dataset.weights[order], np.float32)).to(dev)
-    return images, d_coords, d_weights, np.ones(n, np.float32), n
+    valid = (rank * n_local + np.arange(n_local) < n_res).astype(np.float32)
+    return images, d_coords, d_weights, valid, n_local
 
 
 class _HostFeed:
@@ -559,6 +629,75 @@ def _to_device(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
     return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
 
 
+def maybe_initialize_distributed(
+    cfg: TrainConfig, device: str | torch.device | None = "cuda", backend: str | None = None
+) -> torch.device:
+    """Brings up the data-parallel process group and returns this rank's
+    device (the JAX package's ``maybe_initialize_distributed``). Without
+    ``cfg.distributed`` or ``cfg.coordinator_address`` it only resolves
+    ``device``. With ``coordinator_address`` (host:port) the group meets
+    there (``tcp://``), ``cfg.num_processes`` ranks of which this is
+    ``cfg.process_id``; with bare ``distributed=True`` it takes torchrun's
+    environment (``env://``: ``MASTER_ADDR``, ``RANK``, ``WORLD_SIZE`` ...).
+
+    The backend follows the device, NCCL for CUDA and gloo for the CPU,
+    unless ``backend`` names another: gloo also carries CUDA tensors, so
+    ranks may share one card (``device="cuda:0"``, ``backend="gloo"``).
+    A card given with its index is taken as given; bare ``"cuda"`` is card
+    ``LOCAL_RANK`` (else ``cfg.process_id``), and a host with more local
+    ranks than cards raises, so two ranks never share a card unasked.
+    Re-entrant: an existing group is kept."""
+    dev = resolve_device(device)
+    if not (cfg.distributed or cfg.coordinator_address):
+        return dev
+    if dev.type == "cuda":
+        if dev.index is None:
+            local = int(os.environ.get("LOCAL_RANK", max(cfg.process_id, 0)))
+            n_local = int(os.environ.get("LOCAL_WORLD_SIZE", local + 1))
+            if max(local + 1, n_local) > torch.cuda.device_count():
+                raise ValueError(
+                    f"{max(local + 1, n_local)} ranks on this host but {torch.cuda.device_count()} CUDA card(s): "
+                    "bare 'cuda' gives each local rank a card of its own; pass device='cuda:<i>' (and "
+                    "backend='gloo') to put ranks on one card on purpose"
+                )
+            dev = torch.device("cuda", local)
+        torch.cuda.set_device(dev)
+    if dist.is_initialized():
+        return dev
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    if cfg.coordinator_address:
+        dist.init_process_group(
+            backend, init_method=f"tcp://{cfg.coordinator_address}",
+            world_size=cfg.num_processes, rank=cfg.process_id,
+        )
+    else:
+        dist.init_process_group(backend, init_method="env://")
+    return dev
+
+
+def _check_replicas(state: TrainState) -> None:
+    """Raises on every rank unless every rank holds rank 0's params and
+    batch stats bit for bit (one broadcast, one all-reduce of the verdict,
+    so no rank is left waiting in a collective)."""
+    flat = torch.cat([v.reshape(-1) for part in (state.params, state.batch_stats) for v in part.values()])
+    ref = flat.clone()
+    dist.broadcast(ref, src=0)
+    differ = (ref != flat).any().to(flat.dtype).reshape(1)
+    dist.all_reduce(differ)
+    if differ.item():
+        raise RuntimeError(
+            "the ranks' initial states differ: give every rank the same config "
+            "(random_seed, init_checkpoint, init_backbone, resume)"
+        )
+
+
+def _broadcast_run_id(run_id: str, dev: torch.device) -> str:
+    """Rank 0's run id on every rank: every rank must name the same run."""
+    buf = torch.tensor(list(run_id.encode().ljust(32)[:32]), dtype=torch.uint8, device=dev)
+    dist.broadcast(buf, src=0)
+    return bytes(buf.tolist()).decode().strip()
+
+
 def train(cfg: TrainConfig, device: str | torch.device | None = "cuda") -> dict:
     """Runs the full training loop on ``device`` (the card unless the caller
     passes ``device="cpu"``); returns the JAX trainer's summary dict:
@@ -580,22 +719,35 @@ def train(cfg: TrainConfig, device: str | torch.device | None = "cuda") -> dict:
     once an epoch and logged (``outputs/runs/<run_id>/metrics.jsonl``) with
     each epoch's time, img/s, val loss and LR. ``profile_dir``: a
     torch.profiler trace of ``profile_steps`` steps after this run's first.
+
+    Data parallel (``cfg.distributed`` / ``cfg.coordinator_address``, see
+    :func:`maybe_initialize_distributed`, which ``train`` calls first with
+    ``device``): each of the W ranks runs this loop on ``batch_size // W``
+    rows of every global batch (a batch not divisible by W raises): the
+    host loader's shard ``rank`` of each global batch, or rank ``rank``'s
+    shard of the device-resident split in its own epoch order from (seed,
+    epoch, rank); the val rows likewise, each real row counted once. The
+    run id is rank 0's, the initial state is checked equal on every rank,
+    rank 0 alone logs, prints, traces and saves (the others wait for each
+    save), and img/s counts each global image once.
     """
-    if cfg.distributed or cfg.coordinator_address:
-        raise NotImplementedError(
-            "data-parallel training (cfg.distributed / cfg.coordinator_address) is not ported yet: "
-            "ROADMAP.md Queue A item 1.5 (DDP/NCCL)"
-        )
-    dev = resolve_device(device)
+    dev = maybe_initialize_distributed(cfg, device)
+    rank, world = _rank_world()
+    if cfg.batch_size % world:
+        raise ValueError(f"batch_size ({cfg.batch_size}) must be divisible by the number of ranks ({world})")
+    bs = cfg.batch_size // world  # this rank's rows of every global batch
     np.random.seed(cfg.random_seed)
 
     train_dataset = PrunedKeypointDataset(cfg.dataset_config, train=True, cache=cfg.cache_dataset)
     val_dataset = PrunedKeypointDataset(cfg.dataset_config, train=False, cache=cfg.cache_dataset)
     sample_w = make_sample_weights(train_dataset, cfg)
     train_loader = PrefetchingLoader(
-        train_dataset, cfg.batch_size, shuffle=True, seed=cfg.random_seed, sample_weights=sample_w
+        train_dataset, bs, shuffle=True, seed=cfg.random_seed, sample_weights=sample_w,
+        shard_index=rank, num_shards=world,
     )
-    val_loader = PrefetchingLoader(val_dataset, cfg.batch_size, shuffle=False, drop_last=False)
+    val_loader = PrefetchingLoader(
+        val_dataset, bs, shuffle=False, drop_last=False, shard_index=rank, num_shards=world
+    )
 
     optimizer = make_optimizer(cfg)
     state = init_state(cfg, optimizer, dev)
@@ -627,7 +779,11 @@ def train(cfg: TrainConfig, device: str | torch.device | None = "cuda") -> dict:
         run_id = os.path.basename(os.path.normpath(cfg.resume))
     else:
         run_id = ptlog.generate_id()
-    run = ptlog.init(cfg.wandb_project, config=cfg, run_id=run_id)
+    if world > 1:
+        _check_replicas(state)
+        if not cfg.resume:
+            run_id = _broadcast_run_id(run_id, dev)
+    run = ptlog.init(cfg.wandb_project, config=cfg, run_id=run_id) if rank == 0 else None
 
     def _dd_subset_for(epoch: int) -> np.ndarray | None:
         """The device-resident row subset of this epoch (None: the whole
@@ -640,14 +796,13 @@ def train(cfg: TrainConfig, device: str | torch.device | None = "cuda") -> dict:
         rng = np.random.default_rng((cfg.random_seed, 7771, window))
         return np.sort(rng.choice(len(train_dataset), cfg.device_data_rows, replace=False))
 
-    bs = cfg.batch_size
     dd_sub_window = dd_cur_sub = dd_train = dd_val = None
     if cfg.data_on_device:
         dd_cur_sub = _dd_subset_for(start_epoch)
         r = cfg.device_data_refresh_epochs
         dd_sub_window = (start_epoch // r) * r if (r and dd_cur_sub is not None) else 0
-        dd_train = _device_dataset(train_dataset, cfg, dev, use_transplant, subset=dd_cur_sub)
-        dd_val = _device_dataset(val_dataset, cfg, dev, use_transplant=False)
+        dd_train = _device_dataset(train_dataset, cfg, dev, use_transplant, subset=dd_cur_sub, rank=rank, world=world)
+        dd_val = _device_dataset(val_dataset, cfg, dev, use_transplant=False, rank=rank, world=world)
         steps_per_epoch = dd_train[4] // bs
     else:
         steps_per_epoch = train_loader.num_batches()
@@ -655,7 +810,7 @@ def train(cfg: TrainConfig, device: str | torch.device | None = "cuda") -> dict:
         where = f"device-resident, {dd_train[4]} rows" if cfg.data_on_device else "host loader"
         raise ValueError(
             f"zero train steps per epoch: dataset ({len(train_dataset)} rows, {where}) "
-            f"is smaller than the batch ({bs})"
+            f"is smaller than the batch ({bs} rows a rank, {world} rank(s))"
         )
     feed = _HostFeed(dev)
     c_train = _aug_channels(cfg.in_channels, use_transplant)
@@ -683,7 +838,7 @@ def train(cfg: TrainConfig, device: str | torch.device | None = "cuda") -> dict:
         """Starts the trace before this run's second step (the first warms
         up; resume-safe) and stops it ``profile_steps`` steps later."""
         nonlocal prof, profile_stop
-        if cfg.profile_dir and prof is None and not profile_done and steps_this_run >= 1:
+        if cfg.profile_dir and rank == 0 and prof is None and not profile_done and steps_this_run >= 1:
             from torch.profiler import ProfilerActivity, profile
 
             acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
@@ -712,7 +867,9 @@ def train(cfg: TrainConfig, device: str | torch.device | None = "cuda") -> dict:
                     torch.cuda.empty_cache()
                 dd_sub_window = (epoch // r) * r
                 dd_cur_sub = _dd_subset_for(epoch)
-                dd_train = _device_dataset(train_dataset, cfg, dev, use_transplant, subset=dd_cur_sub)
+                dd_train = _device_dataset(
+                    train_dataset, cfg, dev, use_transplant, subset=dd_cur_sub, rank=rank, world=world
+                )
                 # hand the decode temporaries' pages back to the OS (glibc
                 # keeps freed arenas: host memory creeps with each refresh)
                 try:
@@ -724,19 +881,18 @@ def train(cfg: TrainConfig, device: str | torch.device | None = "cuda") -> dict:
                 try:
                     with open("/proc/self/status") as f:
                         rss = next(ln for ln in f if ln.startswith("VmRSS")).split()[1]
-                    print(f"[refresh epoch {epoch}] host RSS {int(rss) >> 20} GB", flush=True)
+                    print(f"[refresh epoch {epoch}, rank {rank}] host RSS {int(rss) >> 20} GB", flush=True)
                 except (OSError, StopIteration):
                     pass
             n_local = dd_train[4]
             d_w = dd_train[2] if cfg.use_example_weights else None
-            # the epoch's order on the one card (the JAX trainer's shard 0)
+            # this rank's order over its shard (the JAX trainer's shard ``rank``)
+            rng = np.random.default_rng((cfg.random_seed, epoch, rank))
             if sample_w is not None:
-                probs = sample_w[_device_local_rows(1, n_local, len(train_dataset), dd_cur_sub)[0]]
-                perm = np.random.default_rng((cfg.random_seed, epoch, 0)).choice(
-                    n_local, size=n_local, replace=True, p=probs / probs.sum()
-                )
+                probs = sample_w[_device_local_rows(world, n_local, len(train_dataset), dd_cur_sub)[rank]]
+                perm = rng.choice(n_local, size=n_local, replace=True, p=probs / probs.sum())
             else:
-                perm = np.random.default_rng((cfg.random_seed, epoch, 0)).permutation(n_local)
+                perm = rng.permutation(n_local)
             idx_ep = torch.from_numpy(perm[: steps_per_epoch * bs].reshape(steps_per_epoch, bs).astype(np.int64))
             if cfg.device_data_epoch_scan and not cfg.profile_dir:
                 # the whole epoch in one call: the same draws and order as per step
@@ -744,18 +900,18 @@ def train(cfg: TrainConfig, device: str | torch.device | None = "cuda") -> dict:
                     state, dd_train[0], dd_train[1], _to_device(idx_ep, dev), cfg.random_seed, global_step, d_w
                 )
                 epoch_losses.append(losses)
-                n_images += bs * steps_per_epoch
+                n_images += cfg.batch_size * steps_per_epoch
                 global_step += steps_per_epoch
                 steps_this_run += steps_per_epoch
             else:
                 for s in range(steps_per_epoch):
                     maybe_profile(False)
-                    gen = step_generator(cfg.random_seed, global_step, dev)
+                    gen = step_generator(cfg.random_seed, global_step, dev, rank)
                     state, loss = dd_train_step(
                         state, dd_train[0], dd_train[1], _to_device(idx_ep[s], dev), gen, d_w
                     )
                     epoch_losses.append(loss)
-                    n_images += bs
+                    n_images += cfg.batch_size
                     global_step += 1
                     steps_this_run += 1
                     maybe_profile(True)
@@ -772,18 +928,19 @@ def train(cfg: TrainConfig, device: str | torch.device | None = "cuda") -> dict:
                 weights = None
                 if cfg.use_example_weights:
                     weights = feed.put("weight", (b,), lambda out: np.copyto(out, batch["weight"]))
-                gen = step_generator(cfg.random_seed, global_step, dev)
+                gen = step_generator(cfg.random_seed, global_step, dev, rank)
                 state, loss = train_step(state, images, coords, gen, weights=weights)
                 epoch_losses.append(loss)
-                n_images += b
+                n_images += b * world
                 global_step += 1
                 steps_this_run += 1
                 maybe_profile(True)
         # the per-step losses (scalars, or the epoch call's (steps,)) in one
         # read-back, which waits for the epoch's last step
         epoch_losses = torch.cat([x.reshape(-1) for x in epoch_losses]).tolist() if epoch_losses else []
-        for loss_val in epoch_losses:
-            run.log({"loss": loss_val})
+        if run is not None:
+            for loss_val in epoch_losses:
+                run.log({"loss": loss_val})
         if cfg.ema_decay > 0:
             snap = {"params": state.params, "batch_stats": state.batch_stats}
             ema = _ema_apply(ema if ema is not None else snap, snap, cfg.ema_decay)
@@ -791,12 +948,13 @@ def train(cfg: TrainConfig, device: str | torch.device | None = "cuda") -> dict:
         throughput = n_images / max(epoch_time, 1e-9)
         if epoch_losses:
             loss_history.append(float(np.mean(epoch_losses)))
-        if epoch % cfg.print_epochs == 0:
-            print(
-                f"[epoch {epoch}] avg loss {np.mean(epoch_losses):.5f} ({epoch_time:.1f}s, {throughput:,.0f} img/s)",
-                flush=True,
-            )
-        run.log({"epoch_time_s": epoch_time, "train_images_per_sec": throughput})
+        if run is not None:
+            if epoch % cfg.print_epochs == 0:
+                print(
+                    f"[epoch {epoch}] avg loss {np.mean(epoch_losses):.5f} ({epoch_time:.1f}s, {throughput:,.0f} img/s)",
+                    flush=True,
+                )
+            run.log({"epoch_time_s": epoch_time, "train_images_per_sec": throughput})
 
         if epoch % cfg.val_epochs == 0:
             sums = []  # (loss sum, count) per batch, on the device
@@ -805,7 +963,7 @@ def train(cfg: TrainConfig, device: str | torch.device | None = "cuda") -> dict:
                 for idx, mask in eval_index_batches(v_n, bs):
                     sums.append(dd_eval_step(state, v_imgs, v_crds, idx, mask * v_valid[idx]))
             else:
-                for batch in val_loader.epoch(0):
+                for i, batch in enumerate(val_loader.epoch(0)):
                     b = len(batch["pixel_coordinates"])
                     images = feed.put(
                         "val_images", (b, c_val, h, w),
@@ -813,13 +971,18 @@ def train(cfg: TrainConfig, device: str | torch.device | None = "cuda") -> dict:
                     )
                     coords = feed.put("val_coords", batch["pixel_coordinates"].shape,
                                       lambda out: np.copyto(out, batch["pixel_coordinates"]))
-                    sums.append(eval_step(state, images, coords, torch.ones(b, device=dev)))
+                    # the sharded loader wrap-pads the last global batch: its
+                    # repeated rows weigh 0, so every row counts once
+                    first = i * bs * world + rank * bs
+                    real = torch.from_numpy((first + np.arange(b) < len(val_dataset)).astype(np.float32))
+                    sums.append(eval_step(state, images, coords, _to_device(real, dev)))
             pairs = torch.stack([torch.stack(p) for p in sums]).tolist() if sums else []
             loss_sum = sum(p[0] for p in pairs)
             count = sum(p[1] for p in pairs)
             last_val_loss = loss_sum / count if count else float("nan")
-            run.log({"val_loss": last_val_loss, "lr": scheduler.lr})
-            print(f"[epoch {epoch}] val loss {last_val_loss:.5f} (lr {scheduler.lr:.2e})", flush=True)
+            if run is not None:
+                run.log({"val_loss": last_val_loss, "lr": scheduler.lr})
+                print(f"[epoch {epoch}] val loss {last_val_loss:.5f} (lr {scheduler.lr:.2e})", flush=True)
             state = state._replace(opt_state=set_learning_rate(state.opt_state, scheduler.step(last_val_loss)))
 
         if epoch % cfg.save_epochs == 0:
@@ -835,11 +998,15 @@ def train(cfg: TrainConfig, device: str | torch.device | None = "cuda") -> dict:
             if ema is not None:
                 to_save["ema_params"] = ema["params"]
                 to_save["ema_batch_stats"] = ema["batch_stats"]
-            ckpt.save_train_state(os.path.join(ROOT, "outputs", "models", run_id), to_save)
+            if rank == 0:
+                ckpt.save_train_state(os.path.join(ROOT, "outputs", "models", run_id), to_save)
+            if world > 1:
+                dist.barrier()  # no rank runs ahead of the checkpoint (a later resume reads it)
 
     if prof is not None:  # a run shorter than profile_steps: flush the trace anyway
         stop_profile()
-    run.finish()
+    if run is not None:
+        run.finish()
     return {
         "run_id": run_id,
         "final_train_loss": float(np.mean(epoch_losses)) if epoch_losses else float("nan"),
@@ -852,10 +1019,18 @@ def train(cfg: TrainConfig, device: str | torch.device | None = "cuda") -> dict:
 
 def main() -> None:
     """``python -m perseus_tpu_torch.train.train [--flags]``: :func:`train`
-    of the ``TrainConfig`` the flags give (``configs/cli.py``), on the card."""
+    of the ``TrainConfig`` the flags give (``configs/cli.py``), on the card.
+    Data parallel: ``torchrun --nproc-per-node <cards> -m
+    perseus_tpu_torch.train.train --distributed ...`` (a rank per card), or
+    one process per rank with ``--coordinator-address host:port
+    --num-processes W --process-id r``."""
     from perseus_tpu_torch.configs.cli import cli
 
-    train(cli(TrainConfig))
+    try:
+        train(cli(TrainConfig))
+    finally:
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

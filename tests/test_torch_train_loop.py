@@ -339,10 +339,23 @@ def test_ema_checkpoint_roundtrip(tiny_cfg, runs):
     assert saved["epoch"] == 1
 
 
-def test_distributed_is_refused(tiny_cfg):
-    for kw in (dict(distributed=True), dict(coordinator_address="localhost:1234")):
-        with pytest.raises(NotImplementedError, match="Queue A item 1.5"):
-            train.train(dataclasses.replace(tiny_cfg, **kw), device="cpu")
+@pytest.mark.parametrize("case", ["indivisible_batch", "two_ranks_on_one_card"])
+def test_distributed_is_refused(tiny_cfg, monkeypatch, case):
+    """What data parallelism still refuses, before any collective or card
+    is touched: a global batch that the ranks cannot split evenly (two
+    ranks, batch 7), and a second local rank on a host with one card
+    through bare "cuda" (tests/test_torch_distributed.py runs two ranks)."""
+    if case == "indivisible_batch":
+        monkeypatch.setattr(train, "_rank_world", lambda: (0, 2))
+        with pytest.raises(ValueError, match="divisible by the number of ranks"):
+            train.train(dataclasses.replace(tiny_cfg, batch_size=7), device="cpu")
+    else:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        monkeypatch.setenv("LOCAL_RANK", "1")
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+        with pytest.raises(ValueError, match="ranks on this host but 1 CUDA card"):
+            train.train(dataclasses.replace(tiny_cfg, distributed=True))
 
 
 def _logged(run_id: str, key: str) -> list[float]:
