@@ -128,7 +128,25 @@ non-zero exit:
      of a step, the all-reduces per step and the gloo all-reduce alone;
      (9c) NCCL at world size 1 through maybe_initialize_distributed: an
      all-reduce and a broadcast on the card, then train() on the
-     device-resident split, its img/s.
+     device-resident split, its img/s;
+ 10. the scripts/ ports (perseus_tpu_torch/tools/) at full width, in a
+     directory under outputs/ deleted after: render_videos at the default
+     VideoConfig until the pruned train split holds 256 rows (one batch),
+     2 holdout-style videos and 2 pose jobs (16 frames), no failed video;
+     prepare_decoded into the main and holdout decoded splits;
+     pretrain_backbone at the default PretrainConfig, 2 epochs (#1 and #2
+     once a step), its step alone on CUDA events; train_at_scale from the
+     pretrained backbone, 2 epochs, the EMA, holdout and pose evaluation
+     (#6 and #2 once a step, #1 once a step and a val batch, a holdout
+     batch and a pose frame): metrics.json with the JAX script's keys and
+     no error key; compute_difficulty_weights on that checkpoint (#1 a
+     batch) and one train() epoch sampling by its weights; eval_pose_multi
+     over the pose jobs, eval_sensor_transfer on the holdout split,
+     measure_oof on 2 videos, diag_pose_job, and pose_backend_check: the
+     card's dump and the CPU's in f32, the keypoints within 1e-2 px, the
+     smoothers on the SAME keypoints (the GT projection) within 0.05 deg
+     and 2e-3 scene units, and each on its own detections within 1 deg and
+     2e-2 units. Each tool's wall time.
 
 Prints each phase's wall time, the card line, then one JSON line describing
 each kernel, then, as the last line, {"ok": true, "device": {...}}.
@@ -2745,6 +2763,317 @@ def dp_rank_main(argv) -> int:
     return 0
 
 
+SCALE_TRAIN_ROWS = 256  # one batch of the default TrainConfig / PretrainConfig: the least train split
+SCALE_FIRST_VIDEOS = 12  # rendered before the first count of the pruned train rows; then 2 more at a time
+SCALE_HOLDOUT_VIDEOS, SCALE_POSE_JOBS = 2, 2
+SCALE_POSE_FRAMES = 16  # pose jobs cut from 24 frames: the at-scale script's window 12 scores 4 of them
+SCALE_EPOCHS, PRETRAIN_EPOCHS, PRETRAIN_TIMED = 2, 2, 5
+SCALE_POSE_WINDOW = 8  # eval_pose_multi and diag_pose_job, cut from 12
+BACKEND_WINDOW = 4  # pose_backend_check's window, cut from 12
+# card vs CPU bounds of the f32 bisect: the detector's keypoints; the smoother on the SAME (GT) keypoints
+BACKEND_KP_PX, BACKEND_DEG, BACKEND_UNITS = 1e-2, 0.05, 2e-3
+# the full path, each device's smoother on its own detections: a model trained 2 epochs misses the corners
+# by 500-1,100 px, an ill-conditioned LM (0.0226 deg / 9.5e-4 units apart in this PR's first card run)
+BACKEND_FULL_DEG, BACKEND_FULL_UNITS = 1.0, 2e-2
+# the JAX script's metrics.json keys (scripts/train_at_scale.py:284-388), with the EMA, holdout and pose parts
+SCALE_KEYS = {
+    "val_rmse_px", "val_median_corner_err_px", "val_p90_corner_err_px", "other_variant_rmse_px",
+    "val_rmse_in_frame_px", "val_oof_frame_rate", "val_loss", "train_loss", "epochs", "n_train", "n_val",
+    "train_wall_s", "image_hw", "failure_breakdown", "holdout_style_rmse_px", "holdout_style_median_corner_err_px",
+    "holdout_style_n_frames", "pose_rmse_mm", "pose_rmse_deg", "pose_median_mm", "pose_median_deg",
+}
+
+
+def _train_split_rows(writer) -> int:
+    """The rows a DecodedSplitWriter's train split would hold now."""
+    trajs = sorted(writer.trajs, key=lambda tr: tr["job_id"])
+    return sum(len(tr["keep"]) for tr in trajs[: int(writer.cfg.train_frac * len(trajs))])
+
+
+def _timed(label: str, fn, *args, **kwargs):
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    wall = time.perf_counter() - t0
+    log(f"10 {label}: {wall:.3f} s (host clock)")
+    return out, wall
+
+
+def _expect_launches(label: str, counts: dict, expect: dict) -> None:
+    full = {k: expect.get(k, 0) for k in counts}
+    if counts != full:
+        raise AssertionError(f"10 {label}: launches {counts}, expected {full}")
+
+
+def phase_scripts_tools():
+    """Phase 10: the scripts/ ports (perseus_tpu_torch/tools/) at full
+    width, in a directory under outputs/ deleted after: render_videos (the
+    default VideoConfig) until the pruned train split holds SCALE_TRAIN_ROWS
+    rows, holdout-style videos and pose jobs; prepare_decoded into decoded
+    splits; pretrain_backbone at the default PretrainConfig (#1, #2 per
+    step) and its step timed on CUDA events; train_at_scale from the
+    pretrained backbone with the EMA, holdout and pose evaluation (#6, #2,
+    #1 counted; JAX's metrics keys, no error key); compute_difficulty_weights
+    (#1) and one train() epoch sampling by them; eval_pose_multi over the
+    pose jobs, eval_sensor_transfer on the holdout split, measure_oof,
+    diag_pose_job and the pose_backend_check bisect, CPU against the card.
+    Returns the launches of #1, #2 and #6 over the phase's counted calls."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from perseus_tpu_torch import ROOT
+    from perseus_tpu_torch.data.dataset import KeypointDatasetConfig, PrunedKeypointDataset
+    from perseus_tpu_torch.datagen.generate import VideoConfig, render_video
+    from perseus_tpu_torch.tools import compute_difficulty_weights as cdw
+    from perseus_tpu_torch.tools import diag_pose_job, eval_pose_multi, eval_sensor_transfer, measure_oof
+    from perseus_tpu_torch.tools import generate_dataset as gd
+    from perseus_tpu_torch.tools import pose_backend_check as pbc
+    from perseus_tpu_torch.tools import pretrain_backbone as pb
+    from perseus_tpu_torch.tools import train_at_scale as tas
+    from perseus_tpu_torch.train import checkpoint as ckpt
+    from perseus_tpu_torch.train import train
+    from perseus_tpu_torch.train.config import TrainConfig
+
+    total = {"max_pool_3x3_s2": 0, "max_pool_3x3_s2_backward": 0, "fused_ultra_apply": 0}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    os.makedirs(os.path.join(ROOT, "outputs"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="smoke_tools_", dir=os.path.join(ROOT, "outputs"))
+    run_ids = []
+    try:
+        # 10.1 generate_dataset's compute half: the main videos until the split is big enough
+        scfg = tas.ScaleRunConfig(
+            job_dir=os.path.join(work, "jobs"), data_root=os.path.join(work, "data"),
+            output_dir=os.path.join(work, "model"), epochs=SCALE_EPOCHS, ema_decay=0.5, skip_prepare=True,
+            holdout_job_dir=os.path.join(work, "holdout_jobs"),
+        )
+        writer = tas.DecodedSplitWriter(scfg)
+        t0 = time.perf_counter()
+        gen = gd.GenConfig(job_dir=scfg.job_dir, n_videos=SCALE_FIRST_VIDEOS)
+        failed = []
+        while True:
+            failed += gd.render_videos(gen, writer.add, "cuda")["failed"]
+            if failed or _train_split_rows(writer) >= SCALE_TRAIN_ROWS:
+                break
+            gen = dataclasses.replace(gen, start_index=gen.start_index + gen.n_videos, n_videos=2)
+        n_main = len(writer.trajs)
+        ho_writer = tas.DecodedSplitWriter(tas.holdout_config(scfg))
+        failed += gd.render_videos(gd.GenConfig(job_dir=scfg.holdout_job_dir, n_videos=SCALE_HOLDOUT_VIDEOS,
+                                                style="holdout", seed=1), ho_writer.add, "cuda")["failed"]
+        render_s = time.perf_counter() - t0
+        pose_cfg = VideoConfig(frames=SCALE_POSE_FRAMES, seed=2)
+        pose_jobs = []
+        for i in range(SCALE_POSE_JOBS):
+            rgb, depth, _, meta = render_video(pose_cfg, f"{i:08x}", "cuda")
+            pose_jobs.append((f"{i:08x}", torch.cat([rgb, depth[..., None]], dim=-1), meta))
+        if failed:
+            raise AssertionError(f"10.1 videos failed: {failed}")
+        log(f"10.1 render_videos at the default VideoConfig: {n_main} main + {SCALE_HOLDOUT_VIDEOS} holdout videos "
+            f"in {render_s:.3f} s ({(n_main + SCALE_HOLDOUT_VIDEOS) / render_s:.2f} videos/s, simulation and "
+            f"render, host clock); {SCALE_POSE_JOBS} pose jobs of {SCALE_POSE_FRAMES} frames")
+
+        # 10.2 prepare_decoded: the main split and the holdout split
+        (main_split, ho_split), prep_s = _timed("prepare_decoded, both splits",
+                                                lambda: (writer.write(), ho_writer.write()))
+        train_ds = PrunedKeypointDataset(KeypointDatasetConfig(dataset_path=main_split), train=True)
+        val_ds = PrunedKeypointDataset(KeypointDatasetConfig(dataset_path=main_split), train=False)
+        ho_ds = PrunedKeypointDataset(KeypointDatasetConfig(dataset_path=ho_split), train=False)
+        log(f"10.2 decoded splits: train {len(train_ds)}, val {len(val_ds)}, holdout {len(ho_ds)} rows at "
+            f"{train_ds.H}x{train_ds.W} in {prep_s:.3f} s")
+        if len(train_ds) < SCALE_TRAIN_ROWS or not len(val_ds) or not len(ho_ds):
+            raise AssertionError("10.2: a split is too small")
+
+        # 10.3 pretrain_backbone at the default PretrainConfig
+        pcfg = pb.PretrainConfig(dataset_path=main_split, output_dir=os.path.join(work, "pretrain"),
+                                 epochs=PRETRAIN_EPOCHS)
+        _reset_counts()
+        pre, pre_s = _timed("pretrain_backbone", pb.pretrain, pcfg, "cuda")
+        counts = _counts()
+        steps = pre["steps_per_epoch"] * PRETRAIN_EPOCHS
+        _expect_launches("pretrain", counts, {"max_pool_3x3_s2": steps, "max_pool_3x3_s2_backward": steps})
+        add(counts)
+        if not (math.isfinite(pre["loss"]) and math.isfinite(pre["rot_acc"])):
+            raise AssertionError(f"10.3 pretrain loss {pre['loss']}, rot-acc {pre['rot_acc']}")
+        pool = pb.load_rows(train_ds, pb.draw_rows(len(train_ds), pcfg.max_rows, pcfg.seed), pcfg.in_channels,
+                            torch.bfloat16, torch.device("cuda"))
+        opt = train.ClipAdamW(1.0, pcfg.learning_rate, pcfg.weight_decay)
+        state = pb.init_pretrain_state(pcfg, opt, "cuda")
+        step = pb.make_pretrain_step(opt)
+        idx = torch.arange(pcfg.batch_size, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        state, _, _ = step(state, pool, idx, gen)  # warm-up
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(PRETRAIN_TIMED):
+            state, loss, acc = step(state, pool, idx, gen)
+        ev[1].record()
+        torch.cuda.synchronize()
+        step_ms = ev[0].elapsed_time(ev[1]) / PRETRAIN_TIMED
+        log(f"10.3 pretrain: {pre['n_rows']} rows, {steps} steps at batch {pcfg.batch_size}, loss {pre['loss']:.6f} "
+            f"rot-acc {pre['rot_acc']:.4f}, epochs {[round(t, 3) for t in pre['epoch_s']]} s; the step alone "
+            f"{step_ms:.4f} ms ({pcfg.batch_size / step_ms * 1e3:.1f} img/s, CUDA events over {PRETRAIN_TIMED} "
+            f"steps); launches {counts}")
+        del pool, state
+
+        # 10.4 train_at_scale from the pretrained backbone, with the EMA, holdout and pose evaluation
+        acfg = dataclasses.replace(scfg, init_backbone=os.path.join(pcfg.output_dir, "final"))
+        _reset_counts()
+        out, scale_s = _timed("train_at_scale", tas.train_at_scale, acfg, "cuda", pose_job=pose_jobs[0][1:])
+        counts = _counts()
+        run_ids.append(out["run_id"])
+        m = out["metrics"]
+        steps = len(train_ds) // acfg.batch_size * acfg.epochs
+        val_batches = -(-len(val_ds) // acfg.batch_size)
+        ho_batches = -(-len(ho_ds) // acfg.batch_size)
+        # train(): a step each and its val batches each epoch; the final state's and the EMA's val
+        # RMSE; the holdout's; the pose scorer's frames and cold start
+        _expect_launches("train_at_scale", counts, {
+            "max_pool_3x3_s2": steps + acfg.epochs * val_batches + 2 * val_batches + ho_batches
+            + SCALE_POSE_FRAMES + 1,
+            "max_pool_3x3_s2_backward": steps, "fused_ultra_apply": steps})
+        add(counts)
+        errors = [k for k in m if k.endswith("_error")]
+        with open(os.path.join(acfg.output_dir, "metrics.json")) as f:
+            on_disk = json.load(f)
+        if errors or set(m) != SCALE_KEYS or json.dumps(on_disk, sort_keys=True) != json.dumps(m, sort_keys=True):
+            raise AssertionError(f"10.4 metrics: errors {[(k, m[k]) for k in errors]}, keys {sorted(m)}")
+        if not all(math.isfinite(m[k]) for k in ("val_rmse_px", "val_loss", "train_loss", "holdout_style_rmse_px",
+                                                 "pose_rmse_mm", "pose_rmse_deg")):
+            raise AssertionError(f"10.4 metrics not finite: {m}")
+        rates = _logged(out["run_id"], "train_images_per_sec")
+        tcfg = tas.train_config(acfg, main_split, train_ds.H)
+        dd_val = train._device_dataset(val_ds, tcfg, "cuda", use_transplant=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tas.val_rmse_px(out["state"], tcfg, dd_val)
+        val_s = time.perf_counter() - t0
+        del dd_val
+        log(f"10.4 train_at_scale: {json.dumps(m)}")
+        log(f"10.4 train_at_scale: {scale_s:.3f} s in all, train() {m['train_wall_s']} s, img/s per epoch "
+            f"{[round(r, 1) for r in rates]}; val_rmse_px alone over {len(val_ds)} rows {val_s:.4f} s (host clock); "
+            f"launches {counts}")
+
+        # 10.5 compute_difficulty_weights on that checkpoint, then an epoch of train() sampling by them
+        dcfg = cdw.DifficultyConfig(dataset_path=main_split, checkpoint=os.path.join(acfg.output_dir, "final"))
+        _reset_counts()
+        stats, diff_s = _timed("compute_difficulty_weights", cdw.compute_difficulty_weights, dcfg, "cuda")
+        counts = _counts()
+        _expect_launches("difficulty", counts, {"max_pool_3x3_s2": -(-len(train_ds) // dcfg.batch_size)})
+        add(counts)
+        weights = np.load(stats["output"])
+        if weights.shape != (len(train_ds),) or not (weights >= 1).all() or not (weights <= dcfg.w_max).all():
+            raise AssertionError(f"10.5 weights {weights.shape}, range {weights.min()}-{weights.max()}")
+        wcfg = TrainConfig(n_epochs=1, dataset_config=KeypointDatasetConfig(dataset_path=main_split),
+                           sample_weights_path=stats["output"], data_on_device=True, device_data_dtype="bfloat16",
+                           wandb_project="")
+        _reset_counts()
+        res, w_s = _timed("train() sampling by the difficulty weights", train.train, wcfg, "cuda")
+        counts = _counts()
+        run_ids.append(res["run_id"])
+        steps = len(train_ds) // wcfg.batch_size
+        _expect_launches("weighted train", counts, {"max_pool_3x3_s2": steps + val_batches,
+                                                     "max_pool_3x3_s2_backward": steps, "fused_ultra_apply": steps})
+        add(counts)
+        if not all(map(math.isfinite, res["train_loss_history"] + [res["final_val_loss"]])):
+            raise AssertionError(f"10.5 weighted train: {res['train_loss_history']}")
+        log(f"10.5 difficulty weights {stats}; weighted train() epoch loss {res['train_loss_history']}, "
+            f"val {res['final_val_loss']:.6f}; launches {counts}")
+
+        # 10.6 eval_pose_multi over the pose jobs, the trained model
+        sd = ckpt.load_model(os.path.join(acfg.output_dir, "final"))
+        _reset_counts()
+        multi, multi_s = _timed("eval_pose_multi", eval_pose_multi.score_jobs, pose_jobs, sd,
+                                window=SCALE_POSE_WINDOW, device="cuda")
+        counts = _counts()
+        _expect_launches("pose multi", counts, {"max_pool_3x3_s2": SCALE_POSE_JOBS * (SCALE_POSE_FRAMES + 1)})
+        add(counts)
+        if multi["pose_multi_n_videos"] != SCALE_POSE_JOBS or not all(
+                math.isfinite(v) for k, v in multi.items() if k.startswith("pose_multi_")):
+            raise AssertionError(f"10.6 pose multi {multi}")
+        log(f"10.6 eval_pose_multi (window {SCALE_POSE_WINDOW}): {json.dumps(multi)}; "
+            f"{multi_s / (SCALE_POSE_JOBS * SCALE_POSE_FRAMES) * 1e3:.1f} ms/frame; launches {counts}")
+
+        # 10.7 eval_sensor_transfer on the holdout split
+        tcfg_s = eval_sensor_transfer.SensorTransferConfig(checkpoint=os.path.join(acfg.output_dir, "final"),
+                                                           dataset_path=ho_split)
+        _reset_counts()
+        rec, sens_s = _timed("eval_sensor_transfer", eval_sensor_transfer.sensor_transfer, tcfg_s, "cuda")
+        counts = _counts()
+        _expect_launches("sensor transfer", counts, {"max_pool_3x3_s2": 2 * ho_batches})
+        add(counts)
+        if rec["n_frames"] != len(ho_ds) or not (math.isfinite(rec["clean_rmse_px"])
+                                                 and math.isfinite(rec["sensor_rmse_px"])):
+            raise AssertionError(f"10.7 sensor transfer {rec}")
+        log(f"10.7 eval_sensor_transfer: {json.dumps(rec)}; launches {counts}")
+
+        # 10.8 measure_oof on 2 videos (the simulation's labels, nothing rendered)
+        oof, _ = _timed("measure_oof", measure_oof.measure_oof, measure_oof.OofConfig(n_videos=2), "cuda")
+        if oof["frames"] != 2 * VideoConfig().frames or not 0 <= oof["oof_frame_rate"] <= 1:
+            raise AssertionError(f"10.8 measure_oof {oof}")
+        log(f"10.8 measure_oof: {json.dumps(oof)}")
+
+        # 10.9 diag_pose_job on the first pose job
+        _reset_counts()
+        rows, _ = _timed("diag_pose_job", diag_pose_job.diag_rows, pose_jobs[0][1], pose_jobs[0][2], state_dict=sd,
+                         window=SCALE_POSE_WINDOW, device="cuda")
+        counts = _counts()
+        _expect_launches("diag", counts, {"max_pool_3x3_s2": SCALE_POSE_FRAMES + 1})
+        add(counts)
+        if not all(np.isfinite(rows[k]).all() for k in diag_pose_job.COLUMNS):
+            raise AssertionError("10.9 diag rows not finite")
+        log("10.9 diag_pose_job:\n" + "\n".join(diag_pose_job.format_rows(rows)))
+
+        # 10.10 pose_backend_check: the card and the CPU in f32, each smoother also fed the SAME fixed
+        # keypoints (the GT projection)
+        bcfg = pbc.CheckConfig(window=BACKEND_WINDOW, amp=False)
+        frames, meta = pose_jobs[0][1], pose_jobs[0][2]
+        gt_kp = diag_pose_job.gt_keypoints(meta).astype(np.float32)
+        _reset_counts()
+        on_card, card_s = _timed("pose_backend_check on the card", pbc.dump_arrays, bcfg, frames, meta, sd,
+                                 fixed_keypoints=gt_kp, device="cuda")
+        counts = _counts()
+        _expect_launches("backend check", counts, {"max_pool_3x3_s2": SCALE_POSE_FRAMES + 1})
+        add(counts)
+        on_cpu, cpu_s = _timed("pose_backend_check on the CPU", pbc.dump_arrays, bcfg, frames.cpu(), meta,
+                               {k: v.cpu() for k, v in sd.items()}, fixed_keypoints=gt_kp, device="cpu")
+        a, b = ({**d, "metrics": json.dumps(d["metrics"]), "fixed_src": "the GT keypoints"} for d in (on_card, on_cpu))
+        log("10.10 pose_backend_check, card (A) vs CPU (B), f32, window "
+            f"{BACKEND_WINDOW}:\n" + "\n".join(pbc.compare_lines(a, b)))
+        from perseus_tpu_torch.eval.pose_eval import rotation_angle
+
+        def deltas(rot, trans):
+            rel = np.einsum("tji,tjk->tik", a[rot], b[rot])
+            return float(np.degrees(rotation_angle(rel)).max()), float(np.abs(a[trans] - b[trans]).max())
+
+        kp_delta = float(np.abs(a["keypoints"] - b["keypoints"]).max())
+        full_deg, full_units = deltas("rot", "trans")
+        same_deg, same_units = deltas("rot_fixedkp", "trans_fixedkp")
+        if (kp_delta > BACKEND_KP_PX or same_deg > BACKEND_DEG or same_units > BACKEND_UNITS
+                or full_deg > BACKEND_FULL_DEG or full_units > BACKEND_FULL_UNITS):
+            raise AssertionError(f"10.10 card vs CPU: keypoints {kp_delta} px (bound {BACKEND_KP_PX}), SAME "
+                                 f"keypoints {same_deg} deg / {same_units} units (bounds {BACKEND_DEG} / "
+                                 f"{BACKEND_UNITS}), full path {full_deg} deg / {full_units} units (bounds "
+                                 f"{BACKEND_FULL_DEG} / {BACKEND_FULL_UNITS})")
+        log(f"10.10 bisect held: keypoints {kp_delta:.3e} px <= {BACKEND_KP_PX}, SAME keypoints {same_deg:.3e} deg "
+            f"<= {BACKEND_DEG}, {same_units:.3e} units <= {BACKEND_UNITS}, full path {full_deg:.3e} deg <= "
+            f"{BACKEND_FULL_DEG}, {full_units:.3e} units <= {BACKEND_FULL_UNITS}; the card {card_s:.3f} s, the CPU "
+            f"{cpu_s:.3f} s")
+        log(f"10 launches over the phase's counted calls: {total}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        for run_id in run_ids:
+            for kind in ("models", "runs"):
+                shutil.rmtree(os.path.join(ROOT, "outputs", kind, run_id), ignore_errors=True)
+    return total
+
+
 def _entry(name, source, replaces, launches, err, timing, library_ms):
     t_kernel, t_plain, bound, by = timing
     return {
@@ -2787,6 +3116,7 @@ def main() -> int:
         pose_launches, val_launches = run("datagen and eval", phase_datagen_eval)
         tools = run("eval and runtime tools", phase_eval_tools)
         dp = run("data parallel", phase_data_parallel)
+        scripts = run("scripts tools", phase_scripts_tools)
     except Exception as exc:  # report which phase failed, with its traceback
         import traceback
 
@@ -2796,7 +3126,8 @@ def main() -> int:
     log(f"maxpool forward launches: {train_counts['max_pool_3x3_s2']} in {TRAIN_STEPS} train steps, "
         f"{serving_launches} in {N_FRAMES} serving frames, {pose_launches} in the pose scorer "
         f"(a frame each and the cold start's), {val_launches} in validate's val batches, "
-        f"{tools['max_pool_3x3_s2']} in phase 8, {dp['max_pool_3x3_s2']} on phase 9's ranks")
+        f"{tools['max_pool_3x3_s2']} in phase 8, {dp['max_pool_3x3_s2']} on phase 9's ranks, "
+        f"{scripts['max_pool_3x3_s2']} in phase 10")
     pool_src, aug_src = "perseus_tpu_torch/csrc/maxpool.cu", "perseus_tpu_torch/csrc/augment.cu"
     # each kernel timed at the shape of the path that counts it: the ultra
     # kernel and the chain branch take 5 channels, the warp branch 4
@@ -2804,17 +3135,19 @@ def main() -> int:
     kernels = [
         _entry("max_pool_3x3_s2", pool_src, "perseus_tpu/models/pool_pallas.py:55",
                train_counts["max_pool_3x3_s2"] + pose_launches + val_launches + tools["max_pool_3x3_s2"]
-               + dp["max_pool_3x3_s2"], fwd_err,
+               + dp["max_pool_3x3_s2"] + scripts["max_pool_3x3_s2"], fwd_err,
                (fwd[0], fwd[1], fwd[3], fwd[4]), fwd[2]),
         _entry("max_pool_3x3_s2_backward", pool_src, "perseus_tpu/models/pool_pallas.py:79",
                train_counts["max_pool_3x3_s2_backward"] + tools["max_pool_3x3_s2_backward"]
-               + dp["max_pool_3x3_s2_backward"], bwd_err, (bwd[0], bwd[1], bwd[3], bwd[4]), bwd[2]),
+               + dp["max_pool_3x3_s2_backward"] + scripts["max_pool_3x3_s2_backward"], bwd_err,
+               (bwd[0], bwd[1], bwd[3], bwd[4]), bwd[2]),
         _entry("fused_apply", aug_src, "perseus_tpu/augment/fused.py:333",
                branch_counts["fused_apply"], aug("chain", 5)[4], aug("chain", 5)[:4], None),
         _entry("fused_warp_apply", aug_src, "perseus_tpu/augment/fused.py:395",
                branch_counts["fused_warp_apply"], aug("warp", 4)[4], aug("warp", 4)[:4], None),
         _entry("fused_ultra_apply", aug_src, "perseus_tpu/augment/fused.py:413",
-               train_counts["fused_ultra_apply"] + tools["fused_ultra_apply"] + dp["fused_ultra_apply"],
+               train_counts["fused_ultra_apply"] + tools["fused_ultra_apply"] + dp["fused_ultra_apply"]
+               + scripts["fused_ultra_apply"],
                aug("ultra", 5)[4], aug("ultra", 5)[:4], None),
         # no single PyTorch call computes the two-pass warp (F.grid_sample,
         # logged beside it, is a direct 2-D bilinear warp)

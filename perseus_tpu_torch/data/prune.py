@@ -20,8 +20,6 @@ from __future__ import annotations
 import os
 from concurrent.futures import ThreadPoolExecutor
 
-import numpy as np
-
 from perseus_tpu_torch.data import schema
 
 __all__ = ["prune_dataset"]
@@ -100,15 +98,7 @@ def prune_dataset(
             with ThreadPoolExecutor(max_workers=workers) as pool:
                 list(pool.map(lambda job: _link_or_copy(*job), copy_jobs))
 
-            splits[split] = schema.PrunedSplit(
-                image_filenames=kept["image_filenames"],
-                depth_filenames=kept["depth_filenames"],
-                segmentation_filenames=kept["segmentation_filenames"],
-                pixel_coordinates=np.asarray(kept["pixel_coordinates"], dtype=np.float32),
-                asset_ids=np.asarray(kept["asset_ids"]),
-                segmentation_ratios=np.asarray(kept["segmentation_ratios"]),
-                weights=np.asarray(kept["weights"]),
-            )
+            splits[split] = schema.split_from_rows(kept)
 
     attrs["seg_ratio_lb"] = lb
     attrs["seg_ratio_ub"] = ub

@@ -32,6 +32,7 @@ __all__ = [
     "PRUNED_DATASET_KEYS",
     "IMAGE_KEYS",
     "PrunedSplit",
+    "split_from_rows",
     "read_pruned_split",
     "write_pruned_dataset",
     "save_rgb_png",
@@ -42,7 +43,9 @@ __all__ = [
     "load_segmentation_png",
     "compute_weights",
     "is_decoded_split",
+    "open_decoded_arrays",
     "write_decoded_split",
+    "write_decoded_attrs",
     "read_decoded_split",
     "decode_pruned_dataset",
 ]
@@ -76,6 +79,22 @@ class PrunedSplit:
 
     def __len__(self) -> int:
         return len(self.image_filenames)
+
+
+def split_from_rows(rows: dict) -> PrunedSplit:
+    """A split from per-row lists under :data:`PRUNED_DATASET_KEYS` (names
+    as strings, each row's keypoints, asset id, ratio and weight), in the
+    dtypes ``data/prune.py`` writes: keypoints f32, the rest as numpy infers
+    them (so an empty split's arrays are (0,) f64, as prune's)."""
+    return PrunedSplit(
+        image_filenames=list(rows["image_filenames"]),
+        depth_filenames=list(rows["depth_filenames"]),
+        segmentation_filenames=list(rows["segmentation_filenames"]),
+        pixel_coordinates=np.asarray(rows["pixel_coordinates"], dtype=np.float32),
+        asset_ids=np.asarray(rows["asset_ids"]),
+        segmentation_ratios=np.asarray(rows["segmentation_ratios"]),
+        weights=np.asarray(rows["weights"]),
+    )
 
 
 def _decode_names(arr) -> list[str]:

@@ -22,7 +22,7 @@ import torch
 from perseus_tpu_torch.data import schema
 from perseus_tpu_torch.datagen.labeling import cube_corners, get_pixel_coordinates
 
-__all__ = ["LabelConfig", "label_job", "label_dataset", "main"]
+__all__ = ["LabelConfig", "label_job", "label_metadata", "label_dataset", "main"]
 
 
 @dataclass(frozen=True)
@@ -42,10 +42,25 @@ def _reorder_wxyz_to_xyzw(q: np.ndarray) -> np.ndarray:
 
 def label_job(cfg: LabelConfig, job_id: str) -> dict:
     """Labels one job directory; returns per-trajectory arrays."""
-    job_path = os.path.join(cfg.job_dir, job_id)
-    with open(os.path.join(job_path, "metadata.json")) as f:
+    with open(os.path.join(cfg.job_dir, job_id, "metadata.json")) as f:
         metadata = json.load(f)
+    out = label_metadata(cfg, metadata, job_id)
+    if not cfg.lazy_images:
+        rp = lambda p: os.path.join(cfg.job_dir, p)
+        out["images"] = np.stack(
+            [(schema.load_rgb_png(rp(p)) * 255).astype(np.uint8) for p in out["image_filenames"]]
+        )
+        out["depth_images"] = np.stack([schema.load_depth_tiff(rp(p)) for p in out["depth_filenames"]])
+        out["segmentation_images"] = np.stack(
+            [schema.load_segmentation_png(rp(p)) for p in out["segmentation_filenames"]]
+        )
+    return out
 
+
+def label_metadata(cfg: LabelConfig, metadata: dict, job_id: str) -> dict:
+    """:func:`label_job`'s labels (the arrays and file names, no images)
+    from a job's ``metadata.json`` dict already in memory; reads no file."""
+    job_path = os.path.join(cfg.job_dir, job_id)
     asset_index = None
     for i, instance in enumerate(metadata["instances"]):
         if instance["asset_id"] == cfg.asset_id:
@@ -104,15 +119,6 @@ def label_job(cfg: LabelConfig, job_id: str) -> dict:
         "H": h,
         "W": w,
     }
-    if not cfg.lazy_images:
-        rp = lambda p: os.path.join(cfg.job_dir, p)
-        out["images"] = np.stack(
-            [(schema.load_rgb_png(rp(p)) * 255).astype(np.uint8) for p in rgb_names]
-        )
-        out["depth_images"] = np.stack([schema.load_depth_tiff(rp(p)) for p in depth_names])
-        out["segmentation_images"] = np.stack(
-            [schema.load_segmentation_png(rp(p)) for p in seg_names]
-        )
     return out
 
 

@@ -40,10 +40,14 @@ def _imported_modules(path):
                 yield node.args[0].value
 
 
-# the modules of the eval and runtime tools, which the walk below must reach
+# the modules of the eval and runtime tools and of the scripts' ports, which the walk below must reach
 TOOLS = (
     "eval/parity.py", "eval/torch_oracle.py", "eval/validate_real.py", "eval/visualize.py",
     "runtime/sources.py", "runtime/streaming.py", "native/__init__.py", "native/io.py",
+    "tools/__init__.py", "tools/generate_dataset.py", "tools/pretrain_backbone.py",
+    "tools/compute_difficulty_weights.py", "tools/train_at_scale.py", "tools/prepare_at_scale.py",
+    "tools/eval_pose_multi.py", "tools/eval_sensor_transfer.py", "tools/measure_oof.py", "tools/diag_pose_job.py",
+    "tools/pose_backend_check.py",
 )
 
 
@@ -81,3 +85,51 @@ def test_entry_points_raise_without_cuda():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_tools_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+    """Each tool's entry point takes device="cuda" by default (its config's
+    device field too, where the script had a platform) and raises without
+    CUDA before it reads or writes anything."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the check is for hosts without it")
+    import inspect
+
+    from perseus_tpu_torch.tools import (
+        compute_difficulty_weights as cdw,
+        diag_pose_job,
+        eval_pose_multi,
+        eval_sensor_transfer,
+        generate_dataset,
+        measure_oof,
+        pose_backend_check,
+        prepare_at_scale,
+        pretrain_backbone,
+        train_at_scale,
+    )
+
+    entries = [
+        (generate_dataset.render_videos, (generate_dataset.GenConfig(), None)),
+        (generate_dataset.generate_dataset, (generate_dataset.GenConfig(job_dir=str(tmp_path / "jobs")),)),
+        (pretrain_backbone.pretrain, (pretrain_backbone.PretrainConfig(dataset_path=str(tmp_path / "ds")),)),
+        (cdw.difficulty_errors, (cdw.DifficultyConfig(),)),
+        (cdw.compute_difficulty_weights, (cdw.DifficultyConfig(),)),
+        (train_at_scale.train_at_scale, (train_at_scale.ScaleRunConfig(),)),
+        (prepare_at_scale.prepare_rendered, (prepare_at_scale.DecodedPrepareConfig(),)),
+        (eval_pose_multi.score_jobs, ([], {})),
+        (eval_pose_multi.eval_pose_multi, (eval_pose_multi.MultiPoseConfig(),)),
+        (eval_sensor_transfer.sensor_transfer, (eval_sensor_transfer.SensorTransferConfig(),)),
+        (measure_oof.oof_counts, (measure_oof.OofConfig(),)),
+        (measure_oof.measure_oof, (measure_oof.OofConfig(),)),
+        (diag_pose_job.diag_rows, ([], {})),
+        (pose_backend_check.dump_arrays, (pose_backend_check.CheckConfig(), [], {})),
+        (pose_backend_check.run_dump, (pose_backend_check.CheckConfig(job_dir=str(tmp_path / "job")),)),
+    ]
+    for fn, args in entries:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(*args)
+    for cfg in (generate_dataset.GenConfig(), eval_pose_multi.MultiPoseConfig(), diag_pose_job.DiagConfig(),
+                pose_backend_check.CheckConfig()):
+        assert cfg.device == "cuda"
+    assert os.listdir(tmp_path) == []  # nothing was written before the raise
