@@ -146,7 +146,20 @@ non-zero exit:
      card's dump and the CPU's in f32, the keypoints within 1e-2 px, the
      smoothers on the SAME keypoints (the GT projection) within 0.05 deg
      and 2e-3 scene units, and each on its own detections within 1 deg and
-     2e-2 units. Each tool's wall time.
+     2e-2 units. Each tool's wall time;
+ 11. the bench and the entry points: (11a) ``python -m
+     perseus_tpu_torch.bench`` at its defaults (the JAX bench's line:
+     detector f/s at batch 256 bf16, the smoother alone as GN-4 and LM-8,
+     streaming ms/frame, train img/s on a bf16-stored batch), every
+     measured field finite and non-null, vs_baseline null, the JAX line's
+     keys, the launches of #1, #2 and #6 in each of its phase processes
+     equal to what its chain lengths give; (11b) #6 against its plain
+     version on the bench's own bf16 (256, 5, 256, 256) train batch and
+     draws (one bf16 ulp); (11c) graft_entry.entry() on the card, a finite
+     (8, 16) with one launch of #1, and its bf16 difference from the CPU's
+     forward of the same weights (logged); (11d)
+     graft_entry.dryrun_multichip(2), two gloo ranks on cuda:0, #1, #2 and
+     #6 once a step on each rank.
 
 Prints each phase's wall time, the card line, then one JSON line describing
 each kernel, then, as the last line, {"ok": true, "device": {...}}.
@@ -3074,6 +3087,128 @@ def phase_scripts_tools():
     return total
 
 
+# the JAX line's keys (bench.py:492-512), which the port's line must carry, in this order, and its measured fields
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "smoother_p50_ms", "smoother_default_p50_ms",
+              "streaming_ms_per_frame", "train_images_per_sec")
+BENCH_FIELDS = tuple(k for k in BENCH_KEYS if k not in ("metric", "unit", "vs_baseline"))
+BENCH_GLOBAL_BUDGET_S = 600  # the bench's own bound: it kills its phases and prints its line by then
+ENTRY_SHAPE = (8, 16)  # the flagship forward's output on entry()'s example
+
+
+def _bench_phase_results(stderr: str) -> dict:
+    """Each phase's result fields from the bench's stderr, where its harness
+    logs them as ``[bench] phase NAME: ok in Xs -> {json}``."""
+    out = {}
+    for line in stderr.splitlines():
+        head, sep, fields = line.partition(" -> ")
+        if sep and head.startswith("[bench] phase ") and ": ok in " in head:
+            name = head.removeprefix("[bench] phase ").split(":")[0]
+            out[name] = {"wall_s": float(head.split(": ok in ")[1].rstrip("s")), **json.loads(fields)}
+    return out
+
+
+def phase_bench_entry():
+    """Phase 11: the bench and the entry points. (11a) ``python -m
+    perseus_tpu_torch.bench`` at its defaults: every measured field finite,
+    ``vs_baseline`` null, the JAX line's keys, each phase's launches of #1,
+    #2 and #6 as its chain lengths give them; (11b) #6 against its plain
+    version on the bench's own bf16 train batch and draws; (11c)
+    ``graft_entry.entry()`` on the card, a finite (8, 16), beside the CPU's
+    output on the same weights (logged); (11d)
+    ``graft_entry.dryrun_multichip(2)`` on the card. Returns the launches of
+    each kernel over the bench's phases, the entry and the dry run."""
+    import numpy as np
+    import torch
+
+    from perseus_tpu_torch import ROOT, bench, graft_entry
+    from perseus_tpu_torch.augment import fused, ops
+    from perseus_tpu_torch.augment.pipeline import KeypointAugmentation
+    from perseus_tpu_torch.train.config import TrainConfig
+
+    # 11a the bench, as a user runs it
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "perseus_tpu_torch.bench"], cwd=ROOT, capture_output=True, text=True,
+        env=dict(os.environ, PERSEUS_BENCH_GLOBAL_BUDGET_S=str(BENCH_GLOBAL_BUDGET_S)),
+        timeout=BENCH_GLOBAL_BUDGET_S + 60,
+    )
+    wall = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        log(f"11a {line}")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip().startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"11a the bench exited {proc.returncode} with no line")
+    line = json.loads(lines[-1])
+    log(f"11a bench line ({wall:.1f} s of command, {card_line()}): {json.dumps(line)}")
+    bad = [k for k in BENCH_FIELDS if not isinstance(line.get(k), (int, float)) or not math.isfinite(line[k])]
+    if bad or list(line)[: len(BENCH_KEYS)] != list(BENCH_KEYS) or line["vs_baseline"] is not None:
+        raise AssertionError(f"11a bench line: null or non-finite {bad}, keys {list(line)[:len(BENCH_KEYS)]}, "
+                             f"vs_baseline {line.get('vs_baseline')}")
+    phases = _bench_phase_results(proc.stderr)
+    log("11a phase walls: " + ", ".join(f"{k} {v['wall_s']:.1f} s" for k, v in phases.items()))
+    det_n = (bench.DETECTOR_WARMUPS + bench.DETECTOR_REPS) * bench.DETECTOR_K
+    stm_n = bench.STREAMING_WARMUP_K + bench.STREAMING_REPS * bench.STREAMING_K
+    trn_n = (bench.TRAIN_WARMUPS + bench.TRAIN_REPS) * bench.TRAIN_K
+    expect = {"detector": {"max_pool_3x3_s2": det_n}, "streaming": {"max_pool_3x3_s2": stm_n},
+              "train": {"max_pool_3x3_s2": trn_n, "max_pool_3x3_s2_backward": trn_n, "fused_ultra_apply": trn_n}}
+    total = dict.fromkeys(_counts(), 0)
+    for name, want in expect.items():
+        got = phases[name]["launches"]
+        if got != {k: want.get(k, 0) for k in got}:
+            raise AssertionError(f"11a bench phase {name}: launches {got}, expected {want}")
+        for k, v in got.items():
+            total[k] += v
+    log(f"11a bench launches: {total}")
+
+    # 11b #6 on the bench's bf16 train batch, with the draws of its first timed chain
+    b, s = TrainConfig().batch_size, 256
+    rng = np.random.default_rng(3)
+    images = torch.from_numpy(rng.uniform(0, 1, (b, s, s, 5)).astype(np.float32)).to("cuda")
+    images = images.permute(0, 3, 1, 2).contiguous().to(torch.bfloat16)
+    draws = KeypointAugmentation(TrainConfig().augmentation_config).sample(
+        torch.Generator(device="cuda").manual_seed(0), b, s, s, 5)
+    swap, parts = ops._two_pass_params(ops._invert_affine(ops.affine_matrices(draws["affine"], s, s)))
+    args = (images, draws["donor_idx"], swap, torch.stack(parts, dim=-1), draws["fused"])
+    out = fused.fused_ultra_apply(*args)
+    torch.cuda.synchronize()
+    ref = fused.fused_ultra_reference(*args)
+    err = (out.float() - ref.float()).abs().max().item()
+    if out.dtype != torch.bfloat16 or not torch.allclose(out.float(), ref.float(), **BF16_TOL):
+        raise AssertionError(f"11b #6 on the bench's bf16 batch disagrees with its plain version: {err}")
+    log(f"11b #6 on the bench's bf16 {tuple(images.shape)} batch: max abs err {err:.3e} (within {BF16_TOL})")
+    del images, draws, args, out, ref
+    torch.cuda.empty_cache()
+
+    # 11c the flagship forward on the card, and on the CPU with the same weights
+    forward, (example,) = graft_entry.entry()
+    before = _counts()
+    logits = forward(example)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _counts().items()}
+    if tuple(logits.shape) != ENTRY_SHAPE or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"11c entry(): shape {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    if launched != {k: int(k == "max_pool_3x3_s2") for k in launched}:
+        raise AssertionError(f"11c entry(): launches {launched}")
+    forward_c, (example_c,) = graft_entry.entry(device="cpu")
+    diff = (logits.cpu() - forward_c(example_c)).abs().max().item()
+    log(f"11c entry(): {tuple(logits.shape)} finite on the card; bf16 card vs CPU max abs diff {diff:.3e} (logged)")
+    total["max_pool_3x3_s2"] += 1
+
+    # 11d the data-parallel dry run, two gloo ranks on the card
+    t0 = time.perf_counter()
+    dry = graft_entry.dryrun_multichip(2)
+    steps = 3  # the step, then 2 of the epoch
+    want = {"max_pool_3x3_s2": 2 * steps, "max_pool_3x3_s2_backward": 2 * steps, "fused_ultra_apply": 2 * steps}
+    if dry["launches"] != {k: want.get(k, 0) for k in dry["launches"]}:
+        raise AssertionError(f"11d dryrun_multichip(2): launches {dry['launches']}, expected {want}")
+    log(f"11d dryrun_multichip(2) on the card: loss {dry['loss']}, epoch losses {dry['losses']}, launches "
+        f"{dry['launches']}, {time.perf_counter() - t0:.1f} s")
+    for k, v in dry["launches"].items():
+        total[k] += v
+    log(f"11 launches over the phase's counted runs: {total}")
+    return total
+
+
 def _entry(name, source, replaces, launches, err, timing, library_ms):
     t_kernel, t_plain, bound, by = timing
     return {
@@ -3117,6 +3252,7 @@ def main() -> int:
         tools = run("eval and runtime tools", phase_eval_tools)
         dp = run("data parallel", phase_data_parallel)
         scripts = run("scripts tools", phase_scripts_tools)
+        benched = run("bench and entry points", phase_bench_entry)
     except Exception as exc:  # report which phase failed, with its traceback
         import traceback
 
@@ -3127,7 +3263,7 @@ def main() -> int:
         f"{serving_launches} in {N_FRAMES} serving frames, {pose_launches} in the pose scorer "
         f"(a frame each and the cold start's), {val_launches} in validate's val batches, "
         f"{tools['max_pool_3x3_s2']} in phase 8, {dp['max_pool_3x3_s2']} on phase 9's ranks, "
-        f"{scripts['max_pool_3x3_s2']} in phase 10")
+        f"{scripts['max_pool_3x3_s2']} in phase 10, {benched['max_pool_3x3_s2']} in phase 11")
     pool_src, aug_src = "perseus_tpu_torch/csrc/maxpool.cu", "perseus_tpu_torch/csrc/augment.cu"
     # each kernel timed at the shape of the path that counts it: the ultra
     # kernel and the chain branch take 5 channels, the warp branch 4
@@ -3135,11 +3271,12 @@ def main() -> int:
     kernels = [
         _entry("max_pool_3x3_s2", pool_src, "perseus_tpu/models/pool_pallas.py:55",
                train_counts["max_pool_3x3_s2"] + pose_launches + val_launches + tools["max_pool_3x3_s2"]
-               + dp["max_pool_3x3_s2"] + scripts["max_pool_3x3_s2"], fwd_err,
+               + dp["max_pool_3x3_s2"] + scripts["max_pool_3x3_s2"] + benched["max_pool_3x3_s2"], fwd_err,
                (fwd[0], fwd[1], fwd[3], fwd[4]), fwd[2]),
         _entry("max_pool_3x3_s2_backward", pool_src, "perseus_tpu/models/pool_pallas.py:79",
                train_counts["max_pool_3x3_s2_backward"] + tools["max_pool_3x3_s2_backward"]
-               + dp["max_pool_3x3_s2_backward"] + scripts["max_pool_3x3_s2_backward"], bwd_err,
+               + dp["max_pool_3x3_s2_backward"] + scripts["max_pool_3x3_s2_backward"]
+               + benched["max_pool_3x3_s2_backward"], bwd_err,
                (bwd[0], bwd[1], bwd[3], bwd[4]), bwd[2]),
         _entry("fused_apply", aug_src, "perseus_tpu/augment/fused.py:333",
                branch_counts["fused_apply"], aug("chain", 5)[4], aug("chain", 5)[:4], None),
@@ -3147,7 +3284,7 @@ def main() -> int:
                branch_counts["fused_warp_apply"], aug("warp", 4)[4], aug("warp", 4)[:4], None),
         _entry("fused_ultra_apply", aug_src, "perseus_tpu/augment/fused.py:413",
                train_counts["fused_ultra_apply"] + tools["fused_ultra_apply"] + dp["fused_ultra_apply"]
-               + scripts["fused_ultra_apply"],
+               + scripts["fused_ultra_apply"] + benched["fused_ultra_apply"],
                aug("ultra", 5)[4], aug("ultra", 5)[:4], None),
         # no single PyTorch call computes the two-pass warp (F.grid_sample,
         # logged beside it, is a direct 2-D bilinear warp)

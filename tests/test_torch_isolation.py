@@ -7,7 +7,7 @@ import os
 import pytest
 import torch
 
-from perseus_tpu_torch import resolve_device
+from perseus_tpu_torch import bench, graft_entry, resolve_device
 from perseus_tpu_torch.eval import parity, validate_real, visualize
 from perseus_tpu_torch.models import convert
 from perseus_tpu_torch.models.resnet import KeypointCNN
@@ -17,7 +17,7 @@ from perseus_tpu_torch.train import train
 from perseus_tpu_torch.train.config import TrainConfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "perseus_tpu")
+FORBIDDEN = ("jax", "jaxlib", "perseus_tpu", "bench", "__graft_entry__")  # the last two: the JAX root files
 
 
 def _port_files():
@@ -47,7 +47,7 @@ TOOLS = (
     "tools/__init__.py", "tools/generate_dataset.py", "tools/pretrain_backbone.py",
     "tools/compute_difficulty_weights.py", "tools/train_at_scale.py", "tools/prepare_at_scale.py",
     "tools/eval_pose_multi.py", "tools/eval_sensor_transfer.py", "tools/measure_oof.py", "tools/diag_pose_job.py",
-    "tools/pose_backend_check.py",
+    "tools/pose_backend_check.py", "bench.py", "graft_entry.py",
 )
 
 
@@ -81,9 +81,17 @@ def test_entry_points_raise_without_cuda():
         lambda: visualize.augment_batch({}, visualize.VisualizeConfig()),
         lambda: visualize.visualize_augmentations(visualize.VisualizeConfig()),
         lambda: run_display_loop(StreamingConfig(), SyntheticSource()),
+        lambda: graft_entry.entry(),
+        lambda: graft_entry.dryrun_multichip(2),
+        lambda: bench.bench_detector(),
+        lambda: bench.bench_smoother(),
+        lambda: bench.bench_streaming(),
+        lambda: bench.bench_train(),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+    with pytest.raises(RuntimeError, match="is_available"):
+        bench.preflight()
     assert resolve_device("cpu") == torch.device("cpu")
 
 
