@@ -58,13 +58,22 @@ non-zero exit:
      against the CPU on a small f32 configuration with the same draws;
   5. the serving path at full width: StreamingPipeline, RGBD 376x672 frames
      cropped to 256x256, ResNet-18 folded bf16, fixed-lag smoother window 24
-     (GN-4), random weights from a seed, 32 frames. Every output finite; the
-     maxpool's launches counted over exactly this run; the same frames again
-     with the plain maxpool must give identical keypoints and poses; where a
-     frame's time goes (detector alone, smoother alone, device busy share by
-     torch.profiler); the default LM-8 smoother on a few frames; the detector
-     alone at batch 256; and the CUDA pipeline against the CPU pipeline on a
-     small f32 configuration;
+     (GN-4), random weights from a seed, 32 frames, the step captured into a
+     CUDA graph on the first call and replayed after. Every output finite;
+     the maxpool's launches counted over exactly this run (one a replayed
+     frame); under cuDNN's deterministic algorithms, graph replay against
+     the eager step bit for bit on the 32 frames (keypoints, rotations,
+     translations, the last carry) for GN-4 "jacfwd", GN-4 "block" and LM-8,
+     and the smoother's graphed update against its eager update on a
+     sequence whose jumps drive the innovation gate through rejections and
+     two resets; the plain maxpool captured in a graph of its own must give
+     identical keypoints and poses; serving ms/frame of the graph and the
+     eager step in turns (CUDA events, host clock); where a frame's time
+     goes (detector alone, the smoother alone as a graph and eagerly in
+     turns, and for replayed and eager frames the kernels a frame runs, its
+     graph launches and the device busy share by torch.profiler); LM-8,
+     graph and eager in turns; the detector alone at batch 256; and the
+     CUDA pipeline against the CPU pipeline on a small f32 configuration;
   6. the train loop at the default TrainConfig: a decoded synthetic split of
      1,024 train and 256 val rows at 256x256 (numpy alone, in a temporary
      directory under outputs/); train() on the host loader, 2 epochs with a
@@ -192,8 +201,10 @@ def log(msg: str) -> None:
     print(f"[smoke] {msg}", flush=True)
 
 
-def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of one call, by CUDA events over `iters` calls."""
+def time_ms_host(fn, iters: int = 50, warmup: int = 5) -> tuple[float, float]:
+    """Mean time of one call over ``iters`` back-to-back calls after
+    ``warmup``: by CUDA events, and by the host clock from the first call
+    to the end of the last call's work on the device."""
     import torch
 
     for _ in range(warmup):
@@ -201,26 +212,32 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, (time.perf_counter() - t0) * 1e3 / iters
 
 
-def time_turns(fns: dict, rounds: int = 7, iters: int = 50) -> dict:
-    """Median over ``rounds`` of each function's mean time per call (CUDA
-    events over ``iters`` back-to-back calls), the functions taking turns
-    in every round, so that a drift of the shared host's speed falls on all
-    of them alike."""
+def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean device time of one call, by CUDA events over `iters` calls."""
+    return time_ms_host(fn, iters, warmup)[0]
+
+
+def time_turns(fns: dict, rounds: int = 7, iters: int = 50, warmup: int = 3) -> dict:
+    """Median over ``rounds`` of each function's mean time per call over
+    ``iters`` back-to-back calls, (CUDA events, host clock), the functions
+    taking turns in every round, so that a drift of the shared host's speed
+    falls on all of them alike."""
     import statistics
 
     runs = {name: [] for name in fns}
     for _ in range(rounds):
         for name, fn in fns.items():
-            runs[name].append(time_ms(fn, iters=iters, warmup=3))
-    return {name: statistics.median(v) for name, v in runs.items()}
+            runs[name].append(time_ms_host(fn, iters=iters, warmup=warmup))
+    return {name: tuple(statistics.median(t[i] for t in v) for i in (0, 1)) for name, v in runs.items()}
 
 
 def host_us(fn, calls: int = 200) -> float:
@@ -393,7 +410,7 @@ def phase_pool_kernel(main_shape, main_dtype):
         # the kernel and the library call in turns: at batch 1 both are
         # bound by the host, whose speed drifts
         turns = time_turns({"kernel": lambda: pool.max_pool_3x3_s2(x), "lib": lambda: F.max_pool2d(x, 3, 2, 1)})
-        t_kernel, t_lib = turns["kernel"], turns["lib"]
+        t_kernel, t_lib = turns["kernel"][0], turns["lib"][0]
         t_plain = time_ms(lambda: pool.max_pool_3x3_s2_reference(x))
         log_split(f"maxpool {name} kernel", lambda: pool.max_pool_3x3_s2(x), calls=50, host=True)
         log_split(f"maxpool {name} F.max_pool2d", lambda: F.max_pool2d(x, 3, 2, 1), calls=50, host=True)
@@ -838,11 +855,9 @@ def phase_warp_kernel():
 
 
 def _counted():
-    from perseus_tpu_torch.augment import fused, warp
-    from perseus_tpu_torch.models import pool
+    from perseus_tpu_torch.utils.graphed import kernel_wrappers
 
-    return (pool.max_pool_3x3_s2, pool.max_pool_3x3_s2_backward, fused.fused_apply,
-            fused.fused_warp_apply, fused.fused_ultra_apply, warp.warp_affine_two_pass)
+    return kernel_wrappers()
 
 
 def _reset_counts():
@@ -1248,15 +1263,15 @@ def _serving_config(smoother=None):
     )
 
 
-def _run(pipeline, frames):
-    """All frames through a fresh carry; returns stacked outputs and whether
-    every output was finite (checked once, at the end)."""
+def _frames_out(step, carry, frames):
+    """``step(frame, carry)`` over ``frames`` from ``carry``: the stacked
+    keypoints, rotations and translations, one device flag for whether
+    every output was finite, and the last carry."""
     import torch
 
-    carry = pipeline.init_carry()
     kps, rots, transs, finite = [], [], [], []
     for f in frames:
-        k, image, carry, pose = pipeline(f, carry)
+        k, image, carry, pose = step(f, carry)
         kps.append(k)
         rots.append(pose.rot)
         transs.append(pose.trans)
@@ -1264,13 +1279,184 @@ def _run(pipeline, frames):
             torch.isfinite(k).all() & torch.isfinite(image).all()
             & torch.isfinite(pose.rot).all() & torch.isfinite(pose.trans).all()
         )
-    return torch.stack(kps), torch.stack(rots), torch.stack(transs), bool(torch.stack(finite).all())
+    return torch.stack(kps), torch.stack(rots), torch.stack(transs), torch.stack(finite).all(), carry
 
 
-def breakdown(pipeline, frames, sd) -> None:
+def _run(pipeline, frames, eager=False):
+    """All frames through a fresh carry, by the pipeline's call (on the card
+    its captured step) or, with ``eager``, its eager step; returns stacked
+    outputs and whether every output was finite (checked once, at the end)."""
+    kps, rots, transs, finite, _ = _frames_out(pipeline.step_eager if eager else pipeline, pipeline.init_carry(),
+                                               frames)
+    return kps, rots, transs, bool(finite)
+
+
+def _same_tree(a, b) -> bool:
+    """Two pytrees of tensors with one structure and equal tensors, bit for bit."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    la, sa = pytree.tree_flatten(a)
+    lb, sb = pytree.tree_flatten(b)
+    return sa == sb and all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y for x, y in zip(la, lb))
+
+
+GATE_JUMPS = (10, 22)  # frames at which the gate-reset sequence's corners jump away and back
+GATE_JUMP_PX = 90.0
+
+
+def _gate_sequence(smoother, n: int):
+    """``n`` frames of the smoother's corners projected at a cube pose that
+    turns and drifts (0.3 scene units in front of the camera), in pixels,
+    every corner moved by GATE_JUMP_PX from frame GATE_JUMPS[0] until frame
+    GATE_JUMPS[1] (the cube seen to jump away and back): after warm-up the
+    innovation gate rejects ``gate_max_consec`` frames at each jump and
+    resets the window on the next one."""
+    import torch
+
+    from perseus_tpu_torch.camera import project
+    from perseus_tpu_torch.lie import so3_exp
+
+    t = torch.arange(n, dtype=torch.float32, device=smoother.device)[:, None]
+    rot = so3_exp(torch.cat([0.3 + 0.02 * t, -0.2 + 0.01 * t, 0.015 * t], dim=-1))
+    trans = torch.cat([0.02 * torch.sin(0.2 * t), 0.01 * torch.cos(0.3 * t), 0.3 + 0.001 * t], dim=-1)
+    p_cam = torch.einsum("tij,kj->tki", rot, smoother.points_body) + trans[:, None]
+    away = ((t >= GATE_JUMPS[0]) & (t < GATE_JUMPS[1])).to(torch.float32)[:, :, None]
+    return project(smoother.intrinsics, p_cam) + GATE_JUMP_PX * away
+
+
+def _smoother_seq(update, carry, meas):
+    """``update`` over the measurements from ``carry``: stacked rotations and
+    translations, the last carry, and each frame's (consecutive rejections,
+    frames seen) of the gate, on the device."""
+    import torch
+
+    rots, transs, gate = [], [], []
+    for m in meas:
+        carry, pose = update(carry, m)
+        rots.append(pose.rot)
+        transs.append(pose.trans)
+        gate.append(torch.stack([carry.consec_rejects, carry.frames_seen]))
+    return torch.stack(rots), torch.stack(transs), carry, torch.stack(gate)
+
+
+def graph_vs_eager(sd, frames) -> None:
+    """Graph replay against the eager step on the same card, bit for bit,
+    under cuDNN's deterministic algorithms: the serving frames through a
+    fresh pipeline (one capture, then replays) and through its eager step,
+    for GN-4 "jacfwd", GN-4 "block" and LM-8 (keypoints, rotations,
+    translations, the last carry); and the smoother's graphed update against
+    its eager update on a sequence whose outliers drive the innovation gate
+    through rejections and resets."""
+    import torch
+
+    from perseus_tpu_torch.runtime.streaming import StreamingPipeline
+    from perseus_tpu_torch.smoother.lm import SmootherConfig
+
+    cases = (
+        ("GN-4 jacfwd", None),
+        ("GN-4 block", SmootherConfig(window=24, max_iterations=4, accept_reject=False, solver="block")),
+        ("LM-8", SmootherConfig(window=24)),
+    )
+    old_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, smoother in cases:
+            p = StreamingPipeline(_serving_config(smoother=smoother), sd, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graph = _frames_out(p, p.init_carry(), frames)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            eager = _frames_out(p.step_eager, p.init_carry(), frames)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            equal = [_same_tree(a, b) for a, b in zip(graph, eager)]
+            log(f"graph vs eager, {label}, {len(frames)} frames: keypoints/rotations/translations/finite/carry equal "
+                f"{equal}; graphs captured {p._step.graphs}; {(t1 - t0) * 1e3 / len(frames):.4f} ms/frame with the "
+                f"capture, eager {(t2 - t1) * 1e3 / len(frames):.4f} (host clock)")
+            if not all(equal) or not bool(graph[3]) or p._step.graphs != 1:
+                raise AssertionError(f"graph replay differs from the eager step ({label}): equal {equal}, "
+                                     f"finite {bool(graph[3])}, graphs {p._step.graphs}")
+        sm = StreamingPipeline(_serving_config(), sd, device="cuda").smoother
+        meas = _gate_sequence(sm, len(frames))
+        start = sm.coarse_pose_from_keypoints(meas[0])  # the cold start, as the pose scorer's
+        graph = _smoother_seq(sm.graphed_update, sm.init(start), meas)
+        eager = _smoother_seq(sm.update, sm.init(start), meas)
+    finally:
+        torch.backends.cudnn.deterministic = old_det
+    gate = eager[3].cpu().tolist()
+    rejects = sum(1 for c, _ in gate if c > 0)
+    resets = [i for i, (_, seen) in enumerate(gate) if i > 0 and seen == 1]
+    equal = [_same_tree(a, b) for a, b in zip(graph, eager)]
+    log(f"graph vs eager, smoother GN-4 jacfwd on the gate sequence ({len(frames)} frames, jumps at frames "
+        f"{GATE_JUMPS}): rotations/translations/carry/gate equal {equal}; {rejects} frames rejected, resets at "
+        f"frames {resets}")
+    want = [first + sm.cfg.gate_max_consec for first in GATE_JUMPS]
+    if not all(equal) or resets != want or rejects != len(GATE_JUMPS) * sm.cfg.gate_max_consec:
+        raise AssertionError(f"gate sequence: equal {equal}, {rejects} rejections, resets {resets} (want {want})")
+
+
+def chain_turns(steps: dict, init, inputs, iters: int = 8) -> dict:
+    """ms per call of each ``step(input, carry) -> carry``, a chain of its
+    own from ``init()`` over ``inputs`` (cycled), in turns (``time_turns``,
+    3 rounds): (CUDA events, host clock) medians."""
+    fns = {}
+    for name, step in steps.items():
+        state = [init(), 0]
+
+        def one(step=step, state=state):
+            state[0] = step(inputs[state[1] % len(inputs)], state[0])
+            state[1] += 1
+
+        fns[name] = one
+    return time_turns(fns, rounds=3, iters=iters, warmup=1)
+
+
+def serving_turns(pipeline, frames, iters: int = 8) -> dict:
+    """Serving ms/frame of the captured step and of the eager step, in turns."""
+    return chain_turns({"graph": lambda f, c: pipeline(f, c)[2], "eager": lambda f, c: pipeline.step_eager(f, c)[2]},
+                       pipeline.init_carry, frames, iters)
+
+
+def trace_frames(label: str, step, carry, frames, untraced_ms: float) -> None:
+    """The kernels a frame runs, the graph launches it makes, and the
+    device's busy share: the kernels' device time a frame (torch.profiler)
+    over ``untraced_ms``, the frame's time with the profiler off (tracing
+    every kernel of a graph slows its replay several times)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    n = len(frames)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for f in frames:
+                _, _, carry, _ = step(f, carry)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+    except Exception as exc:  # the profiler is a diagnostic here: report, do not fail
+        log(f"{label}: kernels and busy share not measured (profiler: {exc!r})")
+        return
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        log(f"{label}: kernels and busy share not measured (the profiler saw no kernel)")
+        return
+    busy_us = sum(e.self_device_time_total for e in kernels) / n
+    graph_launches = sum(e.count for e in events if e.key == "cudaGraphLaunch")
+    log(f"{label}: traced {n} frames, {sum(e.count for e in kernels) / n:.1f} kernels/frame, "
+        f"{graph_launches / n:g} graph launches/frame, kernels {busy_us:.1f} us/frame; device busy "
+        f"{busy_us / (untraced_ms * 1e3):.6f} of the untraced {untraced_ms:.4f} ms/frame")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:5]:
+        log(f"{label}:   {e.key[:70]}: {e.self_device_time_total / n:.1f} us/frame ({e.count / n:g} launches)")
+
+
+def breakdown(pipeline, frames, sd, turns: dict) -> None:
     """Where a serving frame's time goes: the detector alone at batch 1, the
     smoother update alone (the same GN-4 config, and the block solver for
-    comparison), and the device's busy share over a few traced frames."""
+    comparison) as a graph and eagerly in turns, and the kernels and the
+    device's busy share of replayed and of eager frames (against their
+    untraced ms/frame in ``turns``, from :func:`serving_turns`)."""
     import torch
 
     from perseus_tpu_torch.models import resnet
@@ -1291,43 +1477,16 @@ def breakdown(pipeline, frames, sd) -> None:
         ]
     for solver in ("jacfwd", "block"):
         cfg = SmootherConfig(window=24, max_iterations=4, accept_reject=False, solver=solver)
-        p = StreamingPipeline(_serving_config(smoother=cfg), sd, device="cuda")
-        carry = p.init_carry()
-        with torch.no_grad():
-            for m in meas[:4]:
-                carry, _ = p.smoother.update(carry, m)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for m in meas[4:]:
-                carry, _ = p.smoother.update(carry, m)
-            torch.cuda.synchronize()
-        log(
-            f"breakdown: smoother update alone (GN-4, solver={solver}) "
-            f"{(time.perf_counter() - t0) * 1e3 / 16:.4f} ms (host clock)"
-        )
-    try:
-        from torch.profiler import ProfilerActivity, profile
-
-        carry = pipeline.init_carry()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for f in frames[:4]:
-                _, _, carry, _ = pipeline(f, carry)
-            torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_us = sum(e.self_device_time_total for e in kernels)
-        launches = sum(e.count for e in kernels)
-        top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:5]
-        log(
-            f"breakdown: traced 4 frames, kernels {busy_us / 4:.1f} us/frame, device busy {busy_us / wall_us:.6f} "
-            f"of wall ({busy_us:.1f} of {wall_us:.1f} us, profiler on), {launches / 4:.1f} kernels/frame"
-        )
-        for e in top:
-            log(f"breakdown:   {e.key[:70]}: {e.self_device_time_total / 4:.1f} us/frame")
-    except Exception as exc:  # the profiler is untried on this machine: report, do not fail
-        log(f"breakdown: device busy share not measured (profiler: {exc!r})")
+        sm = StreamingPipeline(_serving_config(smoother=cfg), sd, device="cuda").smoother
+        t = chain_turns({"graph": lambda m, c: sm.graphed_update(c, m)[0], "eager": lambda m, c: sm.update(c, m)[0]},
+                        sm.init, meas)
+        log(f"breakdown: smoother update alone (GN-4, solver={solver}), in turns, CUDA events / host clock: graph "
+            f"{t['graph'][0]:.4f} / {t['graph'][1]:.4f} ms, eager {t['eager'][0]:.4f} / {t['eager'][1]:.4f} ms")
+    carry = pipeline.init_carry()
+    for f in frames[:4]:
+        _, _, carry, _ = pipeline(f, carry)
+    trace_frames("breakdown, replayed frames", pipeline, carry, frames[4:12], turns["graph"][0])
+    trace_frames("breakdown, eager frames", pipeline.step_eager, carry, frames[4:6], turns["eager"][0])
 
 
 def phase_serving():
@@ -1348,9 +1507,13 @@ def phase_serving():
     frames = torch.as_tensor(np.stack(frames_np)).to("cuda")
     pipeline = StreamingPipeline(_serving_config(), sd, device="cuda")
 
-    # warm-up (cuDNN plans, allocator), then the counted, timed main path
+    # the first call captures the step (an eager warm-up, the capture, a
+    # replay); then the counted, timed main path, replays only
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     _run(pipeline, frames[:4])
     torch.cuda.synchronize()
+    log(f"serving: capture and 4 frames {time.perf_counter() - t0:.3f} s (host clock)")
     pool.max_pool_3x3_s2.launches = 0
     t0 = time.perf_counter()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1365,40 +1528,47 @@ def phase_serving():
         raise AssertionError("serving path produced non-finite keypoints, image or pose")
     if kps.shape != (N_FRAMES, 8, 2) or rots.shape != (N_FRAMES, 3, 3):
         raise AssertionError(f"unexpected output shapes {tuple(kps.shape)} {tuple(rots.shape)}")
-    if launches < N_FRAMES:
-        raise AssertionError(f"maxpool kernel launched {launches} times on {N_FRAMES} frames")
+    if launches != N_FRAMES or pipeline._step.graphs != 1:
+        raise AssertionError(f"maxpool kernel launched {launches} times on {N_FRAMES} replayed frames, "
+                             f"{pipeline._step.graphs} graphs captured")
     log(
-        f"serving GN-4 window 24: {N_FRAMES} frames, {event_ms:.4f} ms/frame (CUDA events), "
+        f"serving GN-4 window 24 (graph replay): {N_FRAMES} frames, {event_ms:.4f} ms/frame (CUDA events), "
         f"{wall_ms:.4f} ms/frame (host clock); maxpool launches {launches}"
     )
 
-    # kernel vs plain maxpool inside the same pipeline: identical results
+    graph_vs_eager(sd, frames)
+
+    # kernel vs plain maxpool, each captured in a pipeline of its own (the
+    # patch before the capture): identical results
     old_det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        a = _run(pipeline, frames)
+        a = _run(StreamingPipeline(_serving_config(), sd, device="cuda"), frames)
         with mock.patch.object(pool, "max_pool_3x3_s2", pool.max_pool_3x3_s2_reference):
-            b = _run(pipeline, frames)
+            b = _run(StreamingPipeline(_serving_config(), sd, device="cuda"), frames)
     finally:
         torch.backends.cudnn.deterministic = old_det
     for name, x, y in zip(("keypoints", "rotations", "translations"), a[:3], b[:3]):
         if not torch.equal(x, y):
             diff = (x - y).abs().max().item()
-            raise AssertionError(f"kernel and plain maxpool pipelines differ in {name} by {diff}")
-    log(f"serving path with the plain maxpool: identical keypoints and poses on {N_FRAMES} frames")
+            raise AssertionError(f"kernel and plain maxpool graphs differ in {name} by {diff}")
+    log(f"serving graph with the plain maxpool captured: identical keypoints and poses on {N_FRAMES} frames")
 
-    breakdown(pipeline, frames, sd)
+    turns = serving_turns(pipeline, frames)
+    log(f"serving GN-4 ms/frame in turns (median of 3 rounds of 8 frames), CUDA events / host clock: graph "
+        f"{turns['graph'][0]:.4f} / {turns['graph'][1]:.4f}, eager {turns['eager'][0]:.4f} / "
+        f"{turns['eager'][1]:.4f} ({card_line()})")
 
-    # the default smoother (LM-8 with accept/reject) on a few frames
+    breakdown(pipeline, frames, sd, turns)
+
+    # the default smoother (LM-8 with accept/reject), graph and eager in turns
     lm8 = StreamingPipeline(_serving_config(smoother=SmootherConfig()), sd, device="cuda")
-    _run(lm8, frames[:2])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     _, _, _, finite = _run(lm8, frames[:8])
-    torch.cuda.synchronize()
     if not finite:
         raise AssertionError("LM-8 serving path produced non-finite outputs")
-    log(f"serving LM-8 window 24: {(time.perf_counter() - t0) * 1e3 / 8:.4f} ms/frame (host clock)")
+    t = serving_turns(lm8, frames, iters=4)
+    log(f"serving LM-8 window 24 ms/frame in turns (median of 3 rounds of 4 frames), CUDA events / host clock: "
+        f"graph {t['graph'][0]:.4f} / {t['graph'][1]:.4f}, eager {t['eager'][0]:.4f} / {t['eager'][1]:.4f}")
 
     # the detector alone at batch 256 in bf16
     folded = resnet.fold_batchnorm(sd)
@@ -1406,7 +1576,7 @@ def phase_serving():
     det_ms = time_ms(lambda: resnet.keypoint_cnn_apply_folded(folded, x), iters=10, warmup=3)
     log(f"detector batch 256 bf16: {det_ms:.4f} ms/batch, {256 / det_ms * 1e3:.1f} frames/s")
 
-    # CUDA against the CPU path on a small f32 configuration
+    # CUDA (graph) against the CPU path on a small f32 configuration
     small = StreamingConfig(
         num_channels=4, model_h=64, model_w=64, amp=False,
         smoother=SmootherConfig(window=4, max_iterations=2),
@@ -1794,6 +1964,7 @@ def phase_datagen_eval():
     from perseus_tpu_torch.train import checkpoint as ckpt
     from perseus_tpu_torch.train import train
     from perseus_tpu_torch.train.config import TrainConfig
+    from perseus_tpu_torch.utils.graphed import WARMUP_CALLS
 
     # 7a: render
     cfg = generate.VideoConfig()
@@ -1864,8 +2035,9 @@ def phase_datagen_eval():
     wall = time.perf_counter() - t0
     counts = _counts()
     pose_launches = counts["max_pool_3x3_s2"]
-    # one detection per frame, and the cold start's detection of frame 0
-    expect = {k: (cfg.frames + 1 if k == "max_pool_3x3_s2" else 0) for k in counts}
+    # one detection per frame, the cold start's detection of frame 0, and
+    # the eager warm-up before the step's capture
+    expect = {k: (cfg.frames + 1 + WARMUP_CALLS if k == "max_pool_3x3_s2" else 0) for k in counts}
     finite = all(np.isfinite(res[k]).all() for k in ("pose_rmse_mm", "pose_rmse_deg", "per_frame_rot_deg",
                                                       "per_frame_trans_mm"))
     log(f"7c pose, ResNet-18 random weights bf16, {job}: RMSE {res['pose_rmse_mm']:.4f} mm / "
@@ -2850,6 +3022,7 @@ def phase_scripts_tools():
     from perseus_tpu_torch.train import checkpoint as ckpt
     from perseus_tpu_torch.train import train
     from perseus_tpu_torch.train.config import TrainConfig
+    from perseus_tpu_torch.utils.graphed import WARMUP_CALLS
 
     total = {"max_pool_3x3_s2": 0, "max_pool_3x3_s2_backward": 0, "fused_ultra_apply": 0}
 
@@ -2946,10 +3119,10 @@ def phase_scripts_tools():
         val_batches = -(-len(val_ds) // acfg.batch_size)
         ho_batches = -(-len(ho_ds) // acfg.batch_size)
         # train(): a step each and its val batches each epoch; the final state's and the EMA's val
-        # RMSE; the holdout's; the pose scorer's frames and cold start
+        # RMSE; the holdout's; the pose scorer's frames, cold start and capture warm-up
         _expect_launches("train_at_scale", counts, {
             "max_pool_3x3_s2": steps + acfg.epochs * val_batches + 2 * val_batches + ho_batches
-            + SCALE_POSE_FRAMES + 1,
+            + SCALE_POSE_FRAMES + 1 + WARMUP_CALLS,
             "max_pool_3x3_s2_backward": steps, "fused_ultra_apply": steps})
         add(counts)
         errors = [k for k in m if k.endswith("_error")]
@@ -3005,7 +3178,8 @@ def phase_scripts_tools():
         multi, multi_s = _timed("eval_pose_multi", eval_pose_multi.score_jobs, pose_jobs, sd,
                                 window=SCALE_POSE_WINDOW, device="cuda")
         counts = _counts()
-        _expect_launches("pose multi", counts, {"max_pool_3x3_s2": SCALE_POSE_JOBS * (SCALE_POSE_FRAMES + 1)})
+        _expect_launches("pose multi", counts,
+                         {"max_pool_3x3_s2": SCALE_POSE_JOBS * (SCALE_POSE_FRAMES + 1 + WARMUP_CALLS)})
         add(counts)
         if multi["pose_multi_n_videos"] != SCALE_POSE_JOBS or not all(
                 math.isfinite(v) for k, v in multi.items() if k.startswith("pose_multi_")):
@@ -3037,7 +3211,7 @@ def phase_scripts_tools():
         rows, _ = _timed("diag_pose_job", diag_pose_job.diag_rows, pose_jobs[0][1], pose_jobs[0][2], state_dict=sd,
                          window=SCALE_POSE_WINDOW, device="cuda")
         counts = _counts()
-        _expect_launches("diag", counts, {"max_pool_3x3_s2": SCALE_POSE_FRAMES + 1})
+        _expect_launches("diag", counts, {"max_pool_3x3_s2": SCALE_POSE_FRAMES + 1 + WARMUP_CALLS})
         add(counts)
         if not all(np.isfinite(rows[k]).all() for k in diag_pose_job.COLUMNS):
             raise AssertionError("10.9 diag rows not finite")
@@ -3052,7 +3226,7 @@ def phase_scripts_tools():
         on_card, card_s = _timed("pose_backend_check on the card", pbc.dump_arrays, bcfg, frames, meta, sd,
                                  fixed_keypoints=gt_kp, device="cuda")
         counts = _counts()
-        _expect_launches("backend check", counts, {"max_pool_3x3_s2": SCALE_POSE_FRAMES + 1})
+        _expect_launches("backend check", counts, {"max_pool_3x3_s2": SCALE_POSE_FRAMES + 1 + WARMUP_CALLS})
         add(counts)
         on_cpu, cpu_s = _timed("pose_backend_check on the CPU", pbc.dump_arrays, bcfg, frames.cpu(), meta,
                                {k: v.cpu() for k, v in sd.items()}, fixed_keypoints=gt_kp, device="cpu")
@@ -3124,6 +3298,7 @@ def phase_bench_entry():
     from perseus_tpu_torch.augment import fused, ops
     from perseus_tpu_torch.augment.pipeline import KeypointAugmentation
     from perseus_tpu_torch.train.config import TrainConfig
+    from perseus_tpu_torch.utils.graphed import WARMUP_CALLS
 
     # 11a the bench, as a user runs it
     t0 = time.perf_counter()
@@ -3147,7 +3322,8 @@ def phase_bench_entry():
     phases = _bench_phase_results(proc.stderr)
     log("11a phase walls: " + ", ".join(f"{k} {v['wall_s']:.1f} s" for k, v in phases.items()))
     det_n = (bench.DETECTOR_WARMUPS + bench.DETECTOR_REPS) * bench.DETECTOR_K
-    stm_n = bench.STREAMING_WARMUP_K + bench.STREAMING_REPS * bench.STREAMING_K
+    # the streaming chains' frames, and the eager warm-up before the step's capture
+    stm_n = bench.STREAMING_WARMUP_K + bench.STREAMING_REPS * bench.STREAMING_K + WARMUP_CALLS
     trn_n = (bench.TRAIN_WARMUPS + bench.TRAIN_REPS) * bench.TRAIN_K
     expect = {"detector": {"max_pool_3x3_s2": det_n}, "streaming": {"max_pool_3x3_s2": stm_n},
               "train": {"max_pool_3x3_s2": trn_n, "max_pool_3x3_s2_backward": trn_n, "fused_ultra_apply": trn_n}}
@@ -3270,7 +3446,8 @@ def main() -> int:
     aug = lambda kind, c: augk[(kind, c, torch.float32)]  # noqa: E731
     kernels = [
         _entry("max_pool_3x3_s2", pool_src, "perseus_tpu/models/pool_pallas.py:55",
-               train_counts["max_pool_3x3_s2"] + pose_launches + val_launches + tools["max_pool_3x3_s2"]
+               train_counts["max_pool_3x3_s2"] + serving_launches + pose_launches + val_launches
+               + tools["max_pool_3x3_s2"]
                + dp["max_pool_3x3_s2"] + scripts["max_pool_3x3_s2"] + benched["max_pool_3x3_s2"], fwd_err,
                (fwd[0], fwd[1], fwd[3], fwd[4]), fwd[2]),
         _entry("max_pool_3x3_s2_backward", pool_src, "perseus_tpu/models/pool_pallas.py:79",

@@ -40,18 +40,21 @@ class Intrinsics(NamedTuple):
 
 def normalize_pixel_coordinates(coords: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """Pixel coords (..., 2) as (u, v) -> [-1, 1]: u_n = 2 u / (W - 1) - 1."""
-    scale = torch.tensor(
-        [2.0 / (width - 1.0), 2.0 / (height - 1.0)], dtype=coords.dtype, device=coords.device
-    )
-    return coords * scale - 1.0
+    return _scale_uv(coords, 2.0 / (width - 1.0), 2.0 / (height - 1.0)) - 1.0
 
 
 def denormalize_pixel_coordinates(coords: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """Inverse of :func:`normalize_pixel_coordinates`."""
-    scale = torch.tensor(
-        [(width - 1.0) / 2.0, (height - 1.0) / 2.0], dtype=coords.dtype, device=coords.device
-    )
-    return (coords + 1.0) * scale
+    return _scale_uv(coords + 1.0, (width - 1.0) / 2.0, (height - 1.0) / 2.0)
+
+
+def _scale_uv(coords: torch.Tensor, su: float, sv: float) -> torch.Tensor:
+    """(u su, v sv): each column times a Python float, without the
+    host-to-device copy of a (su, sv) tensor. In f32 and f64 the multiply
+    rounds the float to ``coords``' dtype, as that tensor would be, so the
+    result is the same bit for bit; a bf16 or f16 column is multiplied by
+    the f32 float (PyTorch's op math), not by its rounding to the dtype."""
+    return torch.stack([coords[..., 0] * su, coords[..., 1] * sv], dim=-1)
 
 
 def intrinsics_from_fov(fov: torch.Tensor, height: int, width: int) -> Intrinsics:

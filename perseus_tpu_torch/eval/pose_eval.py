@@ -191,7 +191,8 @@ def evaluate_pose_tracking(
 
 class _StubPipeline:
     """Pipeline stand-in that feeds precomputed keypoints to the real
-    fixed-lag smoother (for tests without a trained detector)."""
+    fixed-lag smoother (for tests without a trained detector), through its
+    graphed update (the JAX package's ``jax.jit(smoother.update)``)."""
 
     def __init__(self, smoother: FixedLagSmoother, kps_all: torch.Tensor):
         self.smoother = smoother
@@ -202,8 +203,7 @@ class _StubPipeline:
 
     def __call__(self, frame_index, carry):
         kp = self.kps[int(frame_index)]
-        with torch.no_grad():
-            carry, pose = self.smoother.update(carry, kp)
+        carry, pose = self.smoother.graphed_update(carry, kp)
         return kp, None, carry, pose
 
 

@@ -1,4 +1,4 @@
-"""Streaming runtime: camera frame -> keypoints -> pose, eagerly on the card.
+"""Streaming runtime: camera frame -> keypoints -> pose, one CUDA graph a frame.
 
 Port of ``perseus_tpu/runtime/streaming.py``. One call per frame runs
 
@@ -10,7 +10,12 @@ Port of ``perseus_tpu/runtime/streaming.py``. One call per frame runs
   -> fixed-lag smoother update
 
 with the same ``__call__(frame, carry) -> (keypoints, image, carry, pose)``
-as the JAX pipeline. Nothing in the step reads back to the host.
+as the JAX pipeline. Nothing in the step reads back to the host, so on the
+card the step is captured into a CUDA graph on the first call and replayed
+after (``utils/graphed.py``: the JAX package's ``jax.jit`` of the step),
+one graph launch a frame; the frame's copy to the card stays outside the
+graph. :meth:`StreamingPipeline.step_eager` runs the same step eagerly
+(for checks and debugging); on the CPU the call is that eager step.
 
 :func:`stream_frames` is the live loop without a display: frames from a
 source through the pipeline, keypoints and image read back once per frame.
@@ -35,6 +40,7 @@ from perseus_tpu_torch.models import resnet
 from perseus_tpu_torch.smoother.fixed_lag import FixedLagSmoother, SmootherCarry
 from perseus_tpu_torch.smoother.lm import SmootherConfig
 from perseus_tpu_torch.train import checkpoint as ckpt
+from perseus_tpu_torch.utils.graphed import Graphed
 
 __all__ = ["StreamingConfig", "StreamingPipeline", "stream_frames", "run_display_loop", "main"]
 
@@ -89,6 +95,7 @@ class StreamingPipeline:
             intr = intrinsics_from_fov(fov, cfg.model_h, cfg.model_w)
             corners = cube_corners(cfg.corner_scale or cfg.cube_scale, device=self.device)
             self.smoother = FixedLagSmoother(cfg.smoother, intr, corners)
+        self._step = Graphed(self.step_eager, self.device)
 
     def init_carry(self, initial_pose: SE3 | None = None) -> SmootherCarry | None:
         """Fresh smoother carry; pass `initial_pose` (e.g. from
@@ -112,9 +119,17 @@ class StreamingPipeline:
             frame = rgb
         return center_crop_hw(frame, cfg.model_h, cfg.model_w)
 
-    @torch.no_grad()
     def __call__(self, frame: np.ndarray | torch.Tensor, carry: SmootherCarry | None):
-        """One frame in; (keypoints_px (K, 2), model_image, carry, pose) out."""
+        """One frame in; (keypoints_px (K, 2), model_image, carry, pose) out.
+        On the card, a replay of the captured step (captured on the first
+        call for the frame's shape); a host frame is copied into the
+        graph's frame buffer."""
+        return self._step(torch.as_tensor(frame, dtype=torch.float32), carry)
+
+    @torch.no_grad()
+    def step_eager(self, frame: np.ndarray | torch.Tensor, carry: SmootherCarry | None):
+        """The step of :meth:`__call__`, run eagerly on the pipeline's device
+        (a frame elsewhere is copied there first)."""
         cfg = self.cfg
         image = self.preprocess(torch.as_tensor(frame, dtype=torch.float32, device=self.device))
         x = image.permute(2, 0, 1)[None].contiguous()  # NCHW

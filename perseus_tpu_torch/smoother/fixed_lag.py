@@ -19,6 +19,7 @@ from perseus_tpu_torch.camera import Intrinsics
 from perseus_tpu_torch.lie import SE3, se3_identity
 from perseus_tpu_torch.smoother.lm import SmootherConfig, WindowState, lm_solve, predict_next
 from perseus_tpu_torch.smoother.residuals import keypoint_projection_residual
+from perseus_tpu_torch.utils.graphed import Graphed
 
 __all__ = ["FixedLagSmoother", "SmootherCarry", "median"]
 
@@ -46,7 +47,13 @@ def median(x: torch.Tensor) -> torch.Tensor:
 
 
 class FixedLagSmoother:
-    """Functional fixed-lag smoother over a window on ``points_body``'s device."""
+    """Functional fixed-lag smoother over a window on ``points_body``'s device.
+
+    :meth:`update` is the eager step; ``graphed_update`` is the same step
+    captured into a CUDA graph on its first call and replayed after (the
+    JAX package's ``jax.jit(smoother.update)``), and :meth:`update` itself
+    on the CPU.
+    """
 
     def __init__(
         self,
@@ -62,6 +69,15 @@ class FixedLagSmoother:
         self.camera_pose = camera_pose
         self.dtype = dtype
         self.device = points_body.device
+        # constants of every update, computed once: the corners'
+        # pseudo-inverse (an SVD), the fallback axes of the cold start, and
+        # the validity mask of a reset window
+        p = points_body.to(dtype)
+        self._corners_pinv = torch.linalg.pinv(p - torch.mean(p, dim=0))  # (3, K); full rank
+        eye = torch.eye(3, dtype=dtype, device=self.device)
+        self._ex, self._ey = eye[0], eye[1]
+        self._newest_only = torch.eye(cfg.window, dtype=dtype, device=self.device)[-1]
+        self.graphed_update = Graphed(self.update, self.device)
 
     def _zeros(self, *shape) -> torch.Tensor:
         return torch.zeros(shape, dtype=self.dtype, device=self.device)
@@ -95,12 +111,10 @@ class FixedLagSmoother:
         weak-perspective POS step (least-squares rotation rows scaled by
         1/z0, Gram-Schmidt, translation from the centroid at that depth)."""
         kp = keypoints_px.to(self.dtype)
-        p = self.points_body.to(self.dtype)
-        pc = p - torch.mean(p, dim=0)
         center = torch.mean(kp, dim=0)
         ux = (kp[:, 0] - center[0]) / self.intrinsics.fx
         uy = (kp[:, 1] - center[1]) / self.intrinsics.fy
-        pinv = torch.linalg.pinv(pc)  # (3, K); corners span 3D, full rank
+        pinv = self._corners_pinv  # of the centred corners, which span 3D
         r1 = pinv @ ux
         r2 = pinv @ uy
         n1 = torch.linalg.vector_norm(r1)
@@ -111,9 +125,7 @@ class FixedLagSmoother:
         b = r2 - torch.dot(a, r2) * a
         bn = torch.linalg.vector_norm(b)
         # degenerate (r1 ~ r2): any perpendicular direction
-        ex = torch.tensor([1.0, 0.0, 0.0], dtype=self.dtype, device=self.device)
-        ey = torch.tensor([0.0, 1.0, 0.0], dtype=self.dtype, device=self.device)
-        alt = torch.linalg.cross(a, torch.where(torch.abs(a[0]) < 0.9, ex, ey))
+        alt = torch.linalg.cross(a, torch.where(torch.abs(a[0]) < 0.9, self._ex, self._ey))
         b = torch.where(
             bn > 1e-6, b / torch.clamp_min(bn, 1e-8), alt / torch.linalg.vector_norm(alt)
         )
@@ -187,9 +199,7 @@ class FixedLagSmoother:
                 ang_vel=torch.where(r, 0.0, window.ang_vel),
                 vel=torch.where(r, 0.0, window.vel),
             )
-            newest_only = self._zeros(t)
-            newest_only[-1] = 1.0
-            valid = torch.where(r, newest_only, valid)
+            valid = torch.where(r, self._newest_only, valid)
             prior_rot = torch.where(r, seed.rot, prior_rot)
             prior_trans = torch.where(r, seed.trans, prior_trans)
             prior_w = torch.where(r, 0.0, prior_w)

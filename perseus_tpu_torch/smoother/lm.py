@@ -13,13 +13,15 @@ residual stack by forward-mode AD (``torch.func.jacfwd``: vmapped JVPs over
 the 12T tangent columns) and solves the dense damped normal equations by
 Cholesky; "block" assembles the block-tridiagonal normal equations from the
 analytic per-factor Jacobians and solves them by block-Thomas Cholesky.
-Everything runs eagerly with no host reads, so a window on the card stays on
-the card; the iteration count is fixed (no early exit), with accept/reject
-by ``torch.where``.
+Everything runs with no host reads and no host literals, so a window on the
+card stays on the card and an update captures into a CUDA graph
+(``FixedLagSmoother.graphed_update``); the iteration count is fixed (no
+early exit), with accept/reject by ``torch.where``.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -130,12 +132,14 @@ def retract_window(state: WindowState, delta: torch.Tensor) -> WindowState:
     )
 
 
-def _sigma_dyn(cfg: SmootherConfig, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(
-        [cfg.sigma_dynamics_rot] * 3 + [cfg.sigma_dynamics_trans] * 3,
-        dtype=like.dtype,
-        device=like.device,
-    )
+@functools.lru_cache(maxsize=64)
+def _sigma_dyn(cfg: SmootherConfig, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The dynamics residual's 6 sigmas [rot x3 | trans x3], built once per
+    (config, dtype, device) and filled on the device: no host literal, even
+    where the first use is inside a CUDA graph's capture."""
+    sigma = torch.full((6,), cfg.sigma_dynamics_trans, dtype=dtype, device=device)
+    sigma[:3].fill_(cfg.sigma_dynamics_rot)
+    return sigma
 
 
 def _frame_poses(state: WindowState) -> SE3:
@@ -175,7 +179,7 @@ def window_residuals(
         SE3(state.rot[1:], state.trans[1:]), cfg.dt, cfg.vel_frame,
     )
     pair_valid = (valid[:-1] * valid[1:])[:, None]
-    r_dyn = (r_dyn / _sigma_dyn(cfg, r_dyn)) * pair_valid
+    r_dyn = (r_dyn / _sigma_dyn(cfg, r_dyn.dtype, r_dyn.device)) * pair_valid
     r_cw = (state.ang_vel[1:] - state.ang_vel[:-1]) / cfg.sigma_const_ang_vel * pair_valid
     r_cv = (state.vel[1:] - state.vel[:-1]) / cfg.sigma_const_vel * pair_valid
 
@@ -234,7 +238,7 @@ def assemble_normal_blocks(
     cost = torch.dot(r0p, r0p) + torch.dot(r0w, r0w) + torch.dot(r0v, r0v)
 
     # ---- dynamics + constant-velocity pairs (i, i+1) -------------------
-    sigma_dyn = _sigma_dyn(cfg, state.trans)
+    sigma_dyn = _sigma_dyn(cfg, dtype, device)
     pair_valid = valid[:-1] * valid[1:]
     r_dyn, h_p1, h_w, h_v, h_p2 = res.dynamics_residual_and_jacobians(
         SE3(state.rot[:-1], state.trans[:-1]), state.ang_vel[:-1], state.vel[:-1],
@@ -432,7 +436,7 @@ def lm_solve(
             delta = torch.cholesky_solve((-jtr)[:, None], _cholesky(a))[:, 0]
         return retract_window(st, delta.reshape(t, 12)), old_cost
 
-    lam = torch.tensor(cfg.lambda_init, dtype=dtype, device=device)
+    lam = torch.full((), cfg.lambda_init, dtype=dtype, device=device)
     if not cfg.accept_reject:
         # incremental GN: constant damping, always step; the cost is the
         # one at the last linearization point
