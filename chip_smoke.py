@@ -40,7 +40,7 @@ non-zero exit:
      in bf16 with f32 params, SmoothL1, clip + AdamW; 3 warm-up steps, then
      20 timed steps with every kernel's launches counted over exactly those
      steps; finite losses and params; where a step's time goes (augmentation,
-     forward + backward, optimizer; device busy share by torch.profiler); the
+     forward + backward, optimizer; the kernels by torch.profiler); the
      two other augmentation branches (warp + chain for 4-channel input, the
      chain alone without the affine) for a few steps each; and the CUDA step
      against the CPU step (which the tier-1 tests hold against the JAX
@@ -71,7 +71,7 @@ non-zero exit:
      eager step in turns (CUDA events, host clock); where a frame's time
      goes (detector alone, the smoother alone as a graph and eagerly in
      turns, and for replayed and eager frames the kernels a frame runs, its
-     graph launches and the device busy share by torch.profiler); LM-8,
+     graph launches by torch.profiler); LM-8,
      graph and eager in turns; the detector alone at batch 256; and the
      CUDA pipeline against the CPU pipeline on a small f32 configuration;
   6. the train loop at the default TrainConfig: a decoded synthetic split of
@@ -80,7 +80,7 @@ non-zero exit:
      save each and the EMA, #6, #1 and #2 counted inside the call (#6 and
      #2 once per step, #1 also once per val batch); the host loader's
      batch alone (materialise, prepare, copy); one epoch with a save and a
-     traced window (train()'s profile_dir: the device busy share), then the
+     traced window (train()'s profile_dir: the kernels a step), then the
      second resumed, against a straight run, under cuDNN's deterministic
      algorithms: run id, epoch, LR, scheduler memory and AdamW step equal,
      losses, params and EMA bit for bit; the device-resident split, the
@@ -886,11 +886,10 @@ def _train_setup(cfg, batch, device, seed=0):
     return opt, state, aug, step, images, coords
 
 
-def step_breakdown(label, aug_kind, cfg, state, aug, opt, images, coords, gen, step_ms, traced_steps):
+def step_breakdown(label, aug_kind, cfg, state, aug, opt, images, coords, gen, traced_steps):
     """Where a train step's time goes: the augmentation (sampling + apply),
     forward + backward and clip + AdamW, each alone (CUDA events), and the
-    device busy share of 3 steps run by ``traced_steps`` under
-    torch.profiler (kernels only) against the untraced ``step_ms``."""
+    kernels of 3 steps run by ``traced_steps`` under torch.profiler."""
     import torch
 
     from perseus_tpu_torch.models import resnet
@@ -927,17 +926,16 @@ def step_breakdown(label, aug_kind, cfg, state, aug, opt, images, coords, gen, s
         # the kernels alone: key_averages() also credits each aten op with
         # the device time of the kernels it launched (counted twice if summed)
         kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 3 / 1e3
+        kernels_ms = sum(e.self_device_time_total for e in kernels) / 3 / 1e3
         top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
         log(
-            f"{label} breakdown: traced 3 steps, kernels {busy_ms:.4f} ms/step, {len(kernels)} distinct kernels, "
-            f"{sum(e.count for e in kernels) / 3:.0f} launches/step; device busy share "
-            f"{busy_ms / step_ms:.6f} of the untraced {step_ms:.4f} ms/step"
+            f"{label} breakdown: traced 3 steps, kernels {kernels_ms:.4f} ms/step, {len(kernels)} distinct kernels, "
+            f"{sum(e.count for e in kernels) / 3:.0f} launches/step"
         )
         for e in top:
             log(f"{label} breakdown:   {e.key[:70]}: {e.self_device_time_total / 3:.1f} us/step ({e.count / 3:.0f} launches)")
     except Exception as exc:  # the profiler is untried on this machine: report, do not fail
-        log(f"{label} breakdown: device busy share not measured (profiler: {exc!r})")
+        log(f"{label} breakdown: kernels not traced (profiler: {exc!r})")
 
 
 def phase_train():
@@ -993,7 +991,7 @@ def phase_train():
         for _ in range(3):
             st, _ = step(st, images, coords, gen)
 
-    step_breakdown("train", "sample + ultra kernel", cfg, state, aug, opt, images, coords, gen, step_ms, traced_steps)
+    step_breakdown("train", "sample + ultra kernel", cfg, state, aug, opt, images, coords, gen, traced_steps)
 
     # the other two augmentation branches through the same entry points
     branch_counts = {}
@@ -1193,7 +1191,7 @@ def phase_train_unfused():
     gen = torch.Generator(device="cuda").manual_seed(cfg.random_seed)
     step_breakdown(
         "train unfused", "sample + unfused op chain, warp kernel #3", cfg, state, aug, opt, images, coords, gen,
-        step_ms, lambda: epoch_fn(state, ds_images, ds_coords, idx[:3], cfg.random_seed, 0),
+        lambda: epoch_fn(state, ds_images, ds_coords, idx[:3], cfg.random_seed, 0),
     )
     del ds_images, ds_coords
 
@@ -1419,11 +1417,9 @@ def serving_turns(pipeline, frames, iters: int = 8) -> dict:
                        pipeline.init_carry, frames, iters)
 
 
-def trace_frames(label: str, step, carry, frames, untraced_ms: float) -> None:
-    """The kernels a frame runs, the graph launches it makes, and the
-    device's busy share: the kernels' device time a frame (torch.profiler)
-    over ``untraced_ms``, the frame's time with the profiler off (tracing
-    every kernel of a graph slows its replay several times)."""
+def trace_frames(label: str, step, carry, frames) -> None:
+    """The kernels a frame runs, their device time a frame and the graph
+    launches it makes (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1436,27 +1432,25 @@ def trace_frames(label: str, step, carry, frames, untraced_ms: float) -> None:
             torch.cuda.synchronize()
         events = prof.key_averages()
     except Exception as exc:  # the profiler is a diagnostic here: report, do not fail
-        log(f"{label}: kernels and busy share not measured (profiler: {exc!r})")
+        log(f"{label}: kernels not measured (profiler: {exc!r})")
         return
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        log(f"{label}: kernels and busy share not measured (the profiler saw no kernel)")
+        log(f"{label}: kernels not measured (the profiler saw no kernel)")
         return
-    busy_us = sum(e.self_device_time_total for e in kernels) / n
+    kernels_us = sum(e.self_device_time_total for e in kernels) / n
     graph_launches = sum(e.count for e in events if e.key == "cudaGraphLaunch")
     log(f"{label}: traced {n} frames, {sum(e.count for e in kernels) / n:.1f} kernels/frame, "
-        f"{graph_launches / n:g} graph launches/frame, kernels {busy_us:.1f} us/frame; device busy "
-        f"{busy_us / (untraced_ms * 1e3):.6f} of the untraced {untraced_ms:.4f} ms/frame")
+        f"{graph_launches / n:g} graph launches/frame, kernels {kernels_us:.1f} us/frame")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:5]:
         log(f"{label}:   {e.key[:70]}: {e.self_device_time_total / n:.1f} us/frame ({e.count / n:g} launches)")
 
 
-def breakdown(pipeline, frames, sd, turns: dict) -> None:
+def breakdown(pipeline, frames, sd) -> None:
     """Where a serving frame's time goes: the detector alone at batch 1, the
     smoother update alone (the same GN-4 config, and the block solver for
-    comparison) as a graph and eagerly in turns, and the kernels and the
-    device's busy share of replayed and of eager frames (against their
-    untraced ms/frame in ``turns``, from :func:`serving_turns`)."""
+    comparison) as a graph and eagerly in turns, and the kernels of
+    replayed and of eager frames."""
     import torch
 
     from perseus_tpu_torch.models import resnet
@@ -1485,8 +1479,8 @@ def breakdown(pipeline, frames, sd, turns: dict) -> None:
     carry = pipeline.init_carry()
     for f in frames[:4]:
         _, _, carry, _ = pipeline(f, carry)
-    trace_frames("breakdown, replayed frames", pipeline, carry, frames[4:12], turns["graph"][0])
-    trace_frames("breakdown, eager frames", pipeline.step_eager, carry, frames[4:6], turns["eager"][0])
+    trace_frames("breakdown, replayed frames", pipeline, carry, frames[4:12])
+    trace_frames("breakdown, eager frames", pipeline.step_eager, carry, frames[4:6])
 
 
 def phase_serving():
@@ -1559,7 +1553,7 @@ def phase_serving():
         f"{turns['graph'][0]:.4f} / {turns['graph'][1]:.4f}, eager {turns['eager'][0]:.4f} / "
         f"{turns['eager'][1]:.4f} ({card_line()})")
 
-    breakdown(pipeline, frames, sd, turns)
+    breakdown(pipeline, frames, sd)
 
     # the default smoother (LM-8 with accept/reject), graph and eager in turns
     lm8 = StreamingPipeline(_serving_config(smoother=SmootherConfig()), sd, device="cuda")
@@ -1738,7 +1732,7 @@ def phase_train_loop():
         val_batches = -(-LOOP_VAL_ROWS // cfg.batch_size)
 
         host_times = host_batch_times(cfg)
-        _, epoch_times, host_rate = _counted_train("train loop, host loader", cfg, run_ids, 2 * steps, 2 * val_batches)
+        _, _, host_rate = _counted_train("train loop, host loader", cfg, run_ids, 2 * steps, 2 * val_batches)
 
         # resume against the straight run, cuDNN deterministic; the first
         # run also traces steps 1-2 (train()'s profile_dir)
@@ -1779,12 +1773,9 @@ def phase_train_loop():
             raise AssertionError(f"train loop: the resumed run parts from the straight one: {bad}")
         kernel_ms, memcpy_ms, launches = _trace_kernels(prof_dir)
         per_step = kernel_ms / 2
-        busy = [per_step * steps / (t * 1e3) for t in epoch_times]
         log(f"train loop host loader, traced steps 1-2 (torch.profiler, train()'s profile_dir): kernels "
             f"{per_step:.4f} ms/step in {launches / 2:g} launches, host->card copies {memcpy_ms / 2:.4f} ms/step; "
-            f"device busy share of the untraced epochs {[round(b, 6) for b in busy]} (kernels x {steps} steps / "
-            f"the epoch's wall); host batch alone {sum(host_times.values()):.3f} ms against kernels "
-            f"{per_step:.4f} ms a step")
+            f"host batch alone {sum(host_times.values()):.3f} ms against kernels {per_step:.4f} ms a step")
 
         # the device-resident split: the epoch in one call, step by step
         dd = dataclasses.replace(cfg, data_on_device=True, n_epochs=1, ema_decay=0.0)
@@ -1819,8 +1810,7 @@ def phase_train_loop():
         log(f"train loop on {card_line()}: train() img/s over its epochs: host loader {host_rate:.1f}, "
             f"device-resident epoch call {scan_rate:.1f}, step by step {per_rate:.1f}; host loader batch alone "
             f"{sum(host_times.values()):.3f} ms ({', '.join(f'{k} {v:.3f}' for k, v in host_times.items())}) "
-            f"against kernels {per_step:.4f} ms a step; device busy share of the host loader's epochs "
-            f"{[round(b, 6) for b in busy]}")
+            f"against kernels {per_step:.4f} ms a step")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         for run_id in run_ids:

@@ -38,6 +38,7 @@ import torch
 
 from perseus_tpu_torch.augment import fused, ops
 from perseus_tpu_torch.camera import normalize_pixel_coordinates
+from perseus_tpu_torch.utils.spans import span
 
 __all__ = ["AugmentationConfig", "KeypointAugmentation"]
 
@@ -231,7 +232,9 @@ class KeypointAugmentation:
 
     def apply(self, images: torch.Tensor, pixel_coordinates: torch.Tensor, draws: dict):
         """The augmentation as a deterministic function of ``draws``
-        (:meth:`sample`'s dict, or the same draws from the JAX pipeline)."""
+        (:meth:`sample`'s dict, or the same draws from the JAX pipeline).
+        A fused branch's kernel call is the span ``augment.apply.kernel``
+        (``utils/spans.py``); the rest is the apply's set-up."""
         cfg = self.cfg
         squeeze = images.dim() == 3
         if squeeze:
@@ -257,19 +260,22 @@ class KeypointAugmentation:
             params = draws["fused"]
             if use_ultra:
                 swap, parts = ops._two_pass_params(ops._invert_affine(mats))
-                images = fused.fused_ultra_apply(
-                    images.contiguous(), donor_idx, swap, torch.stack(parts, dim=-1), params
-                )
+                images, parts = images.contiguous(), torch.stack(parts, dim=-1)
+                with span("augment.apply.kernel", dev):
+                    images = fused.fused_ultra_apply(images, donor_idx, swap, parts, params)
                 coords = ops.transform_keypoints(coords, mats)
             elif mats is not None and h == w:
                 images_sw, parts = ops._two_pass_setup(images, ops._invert_affine(mats))
-                images = fused.fused_warp_apply(images_sw.contiguous(), torch.stack(parts, dim=-1), params)
+                images_sw, parts = images_sw.contiguous(), torch.stack(parts, dim=-1)
+                with span("augment.apply.kernel", dev):
+                    images = fused.fused_warp_apply(images_sw, parts, params)
                 coords = ops.transform_keypoints(coords, mats)
             else:
                 if mats is not None:
                     images = ops.warp_affine_bilinear(images, mats)
                     coords = ops.transform_keypoints(coords, mats)
-                images = fused.fused_apply(images.contiguous(), params)
+                with span("augment.apply.kernel", dev):
+                    images = fused.fused_apply(images.contiguous(), params)
         elif (cfg.random_near_plane or cfg.random_far_plane) and c > NUM_RGB_CHANNELS:
             # val mode: the deterministic near/far clamp, in f32, one cast back
             depth = ops.depth_plane_clamp(

@@ -41,6 +41,7 @@ from perseus_tpu_torch.smoother.fixed_lag import FixedLagSmoother, SmootherCarry
 from perseus_tpu_torch.smoother.lm import SmootherConfig
 from perseus_tpu_torch.train import checkpoint as ckpt
 from perseus_tpu_torch.utils.graphed import Graphed
+from perseus_tpu_torch.utils.spans import span
 
 __all__ = ["StreamingConfig", "StreamingPipeline", "stream_frames", "run_display_loop", "main"]
 
@@ -123,8 +124,10 @@ class StreamingPipeline:
         """One frame in; (keypoints_px (K, 2), model_image, carry, pose) out.
         On the card, a replay of the captured step (captured on the first
         call for the frame's shape); a host frame is copied into the
-        graph's frame buffer."""
-        return self._step(torch.as_tensor(frame, dtype=torch.float32), carry)
+        graph's frame buffer. The span ``serve.frame`` starts the frame's
+        id."""
+        with span("serve.frame"):
+            return self._step(torch.as_tensor(frame, dtype=torch.float32), carry)
 
     @torch.no_grad()
     def step_eager(self, frame: np.ndarray | torch.Tensor, carry: SmootherCarry | None):
@@ -133,10 +136,12 @@ class StreamingPipeline:
         cfg = self.cfg
         image = self.preprocess(torch.as_tensor(frame, dtype=torch.float32, device=self.device))
         x = image.permute(2, 0, 1)[None].contiguous()  # NCHW
-        pred = resnet.keypoint_cnn_apply_folded(self.folded, x, compute_dtype=self.compute_dtype)
+        with span("serve.detector", self.device):
+            pred = resnet.keypoint_cnn_apply_folded(self.folded, x, compute_dtype=self.compute_dtype)
         keypoints = denormalize_pixel_coordinates(pred.reshape(-1, 2), cfg.model_h, cfg.model_w)
         if self.smoother is not None:
-            carry, pose = self.smoother.update(carry, keypoints)
+            with span("smoother.update", self.device):
+                carry, pose = self.smoother.update(carry, keypoints)
             return keypoints, image, carry, pose
         return keypoints, image, carry, se3_identity(torch.float32, self.device)
 

@@ -106,8 +106,9 @@ class TrainConfig:
     # failure-recovery story.
     resume: str = ""
 
-    # When set, write a jax.profiler trace of a few steady-state steps to
-    # this directory (viewable in TensorBoard / xprof).
+    # When set, write a torch.profiler chrome trace of a few steady-state
+    # steps to this directory (chrome://tracing, Perfetto); it carries the
+    # port's spans (utils/spans.py) as named host ranges.
     profile_dir: str = ""
     profile_steps: int = 5
 

@@ -56,6 +56,7 @@ from perseus_tpu_torch.models import resnet
 from perseus_tpu_torch.train import checkpoint as ckpt
 from perseus_tpu_torch.train.config import TrainConfig
 from perseus_tpu_torch.utils import logging as ptlog
+from perseus_tpu_torch.utils.spans import span
 
 __all__ = [
     "AdamWState",
@@ -301,6 +302,9 @@ def make_loss_and_grads(cfg: TrainConfig, train_augment: KeypointAugmentation):
     each rank back-propagates its share (its batch means / W) through the
     global batch norm, and the loss and the gradients are summed over the
     ranks in one all-reduce.
+
+    Spans (``utils/spans.py``): ``augment.sample``, ``augment.apply`` and
+    ``model.forward_backward`` (the forward through ``autograd.grad``).
     """
     compute_dtype = torch.bfloat16 if cfg.amp else torch.float32
 
@@ -309,9 +313,11 @@ def make_loss_and_grads(cfg: TrainConfig, train_augment: KeypointAugmentation):
             raise ValueError("cfg.use_example_weights: the step needs the batch's weights")
         world = resnet._world_size()
         b, c, h, w = images_aug.shape
+        dev = images_aug.device
         if draws is None:
-            draws = train_augment.sample(gen, b, h, w, c)
-        with torch.no_grad():
+            with span("augment.sample", dev):
+                draws = train_augment.sample(gen, b, h, w, c)
+        with torch.no_grad(), span("augment.apply", dev):
             images, target = train_augment.apply(images_aug, coords, draws)
         images = images[:, : cfg.in_channels]
         h_img, w_img = images.shape[2], images.shape[3]
@@ -357,7 +363,7 @@ def make_loss_and_grads(cfg: TrainConfig, train_augment: KeypointAugmentation):
         keys = list(state.params)
         params = {k: v.detach().requires_grad_() for k, v in state.params.items()}
         # the backward's f32 convs too must not run in TF32
-        with torch.enable_grad(), resnet._full_f32():
+        with torch.enable_grad(), resnet._full_f32(), span("model.forward_backward", dev):
             pred, new_stats = resnet.keypoint_cnn_apply(
                 {**params, **state.batch_stats}, images, train=True,
                 compute_dtype=compute_dtype, s2d_stem=cfg.s2d_stem,
@@ -382,12 +388,13 @@ def make_loss_and_grads(cfg: TrainConfig, train_augment: KeypointAugmentation):
 def make_train_step(cfg: TrainConfig, optimizer: ClipAdamW, train_augment: KeypointAugmentation):
     """The train step ``step(state, images_aug, coords, gen=None,
     weights=None, draws=None) -> (new_state, loss)``: :func:`make_loss_and_grads`'s
-    arguments, then clip + AdamW."""
+    arguments, then clip + AdamW (the span ``optimizer.update``)."""
     loss_and_grads = make_loss_and_grads(cfg, train_augment)
 
     def step(state: TrainState, images_aug, coords, gen=None, weights=None, draws=None):
         loss, grads, new_stats = loss_and_grads(state, images_aug, coords, gen, weights, draws)
-        new_params, new_opt = optimizer.update(grads, state.opt_state, state.params)
+        with span("optimizer.update", images_aug.device):
+            new_params, new_opt = optimizer.update(grads, state.opt_state, state.params)
         return TrainState(new_params, new_stats, new_opt), loss
 
     return step
@@ -443,12 +450,14 @@ def make_device_data_train_step(cfg: TrainConfig, optimizer: ClipAdamW, train_au
     ds_coords, idx, gen, ds_weights=None) -> (new_state, loss)`` gathers rows
     ``idx`` (B,) of ``ds_images`` (N, C, H, W), ``ds_coords`` (N, K, 2) and,
     with ``cfg.use_example_weights``, ``ds_weights`` (N,) on their device,
-    then takes :func:`make_train_step`'s step (one card: JAX's ``mesh=None``)."""
+    then takes :func:`make_train_step`'s step (one card: JAX's ``mesh=None``),
+    all inside the span ``train.step``, the root of the step's spans."""
     base_step = make_train_step(cfg, optimizer, train_augment)
 
     def step(state: TrainState, ds_images, ds_coords, idx, gen, ds_weights=None):
-        weights = None if ds_weights is None else _gather(ds_weights, idx)
-        return base_step(state, _gather(ds_images, idx), _gather(ds_coords, idx), gen, weights=weights)
+        with span("train.step", ds_images.device):
+            weights = None if ds_weights is None else _gather(ds_weights, idx)
+            return base_step(state, _gather(ds_images, idx), _gather(ds_coords, idx), gen, weights=weights)
 
     return step
 

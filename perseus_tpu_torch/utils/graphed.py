@@ -25,6 +25,8 @@ from typing import Any, Callable, NamedTuple
 import torch
 from torch.utils import _pytree as pytree
 
+from perseus_tpu_torch.utils import spans
+
 __all__ = ["Graphed", "WARMUP_CALLS", "kernel_wrappers"]
 
 WARMUP_CALLS = 1  # eager calls before a capture: each launches its hand kernels once
@@ -51,6 +53,7 @@ class _Capture(NamedTuple):
     outputs: list  # the graph's output leaves
     out_spec: pytree.TreeSpec
     launches: dict  # the hand-kernel launches the graph holds, by wrapper
+    spans: spans.GraphSpans | None  # the spans inside the graph (captured with spans on)
 
 
 class Graphed:
@@ -63,7 +66,13 @@ class Graphed:
     static input buffers and the garbage collector off. Every call copies its tensors into those buffers (a host tensor
     is copied to the device there), replays the graph and returns clones of
     its outputs, so that no later replay overwrites them. A new signature
-    captures a new graph. The hand kernels' wrappers count their launches
+    captures a new graph. Whether spans are on (``utils/spans.py``) is part
+    of the signature: with spans off the graph is the function's work alone;
+    with spans on a graph of its own holds event nodes at its start and end
+    and around each span inside the function, so that each replay yields
+    them. A call opens the spans ``graphed.copy_in``, ``graphed.replay``
+    and ``graphed.clone_out`` (on the CPU around the eager call, the first
+    and last around nothing). The hand kernels' wrappers count their launches
     in Python; the launches a graph holds are added to their counts at each
     replay (and not at the capture, which launches nothing). Outputs carry
     no autograd history.
@@ -82,21 +91,31 @@ class Graphed:
     def __call__(self, *args: Any) -> Any:
         if self.device.type != "cuda":
             with torch.no_grad():
-                return self.fn(*args)
+                with spans.span("graphed.copy_in", self.device):
+                    pass
+                with spans.span("graphed.replay", self.device):
+                    out = self.fn(*args)
+                with spans.span("graphed.clone_out", self.device):
+                    pass
+                return out
         leaves, spec = pytree.tree_flatten(args)
-        key = (spec, tuple((tuple(x.shape), x.dtype) if isinstance(x, torch.Tensor) else x for x in leaves))
+        key = (spec, tuple((tuple(x.shape), x.dtype) if isinstance(x, torch.Tensor) else x for x in leaves),
+               spans.enabled())
         cap = self._captures.get(key)
         if cap is None:
             cap = self._captures[key] = self._capture(leaves, spec)
-        for buf, x in zip(cap.inputs, leaves):
-            if buf is not None:
-                buf.copy_(x)
-        cap.graph.replay()
+        with spans.span("graphed.copy_in", self.device):
+            for buf, x in zip(cap.inputs, leaves):
+                if buf is not None:
+                    buf.copy_(x)
+        with spans.span("graphed.replay", self.device, graph=cap.spans):
+            cap.graph.replay()
         for fn, n in cap.launches.items():
             fn.launches += n
-        return pytree.tree_unflatten(
-            [x.clone() if isinstance(x, torch.Tensor) else x for x in cap.outputs], cap.out_spec
-        )
+        with spans.span("graphed.clone_out", self.device):
+            return pytree.tree_unflatten(
+                [x.clone() if isinstance(x, torch.Tensor) else x for x in cap.outputs], cap.out_spec
+            )
 
     def _capture(self, leaves: list, spec: pytree.TreeSpec) -> _Capture:
         inputs = [
@@ -107,7 +126,7 @@ class Graphed:
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.no_grad():
-            with torch.cuda.stream(stream):
+            with torch.cuda.stream(stream), spans.paused():
                 for _ in range(WARMUP_CALLS):
                     self.fn(*static)
             torch.cuda.current_stream(self.device).wait_stream(stream)
@@ -120,7 +139,8 @@ class Graphed:
             gc.disable()
             try:  # a capture that fails raises: there is no eager fallback
                 with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
-                    out = self.fn(*static)
+                    with spans.graph_capture("graphed.replay") as graph_spans:
+                        out = self.fn(*static)
             finally:  # the capture recorded launches and ran none
                 if collecting:
                     gc.enable()
@@ -128,4 +148,4 @@ class Graphed:
                 for fn in launches:
                     fn.launches = before[fn]
         outputs, out_spec = pytree.tree_flatten(out)
-        return _Capture(graph, inputs, outputs, out_spec, launches)
+        return _Capture(graph, inputs, outputs, out_spec, launches, graph_spans)
