@@ -34,7 +34,12 @@ non-zero exit:
      swapped and unswapped images also timed as batches of their own), at
      (3, 5, 37, 37) and (2, 4, 129, 129), and over the sweep of affines at
      sizes 37, 129 and 256 with 5 and 4 channels; timed beside F.grid_sample
-     (a direct 2-D bilinear warp, another function: a yardstick only);
+     (a direct 2-D bilinear warp, another function: a yardstick only); the
+     smoother's solve (#7, csrc/smoother.cu) on a warm window of 24 frames
+     and 8 corners, GN-4 and LM-8, against its plain version on the same
+     arguments (window within 1e-3, the newest pose's corners within 0.1
+     px), timed alone beside the plain version captured in a CUDA graph,
+     with its bounds (bytes, operations, the dependent chain);
   4. the detector train step at the default TrainConfig: batch 256 of
      5-channel 256x256 synthetic frames, fused ultra augmentation, ResNet-18
      in bf16 with f32 params, SmoothL1, clip + AdamW; 3 warm-up steps, then
@@ -60,8 +65,8 @@ non-zero exit:
      cropped to 256x256, ResNet-18 folded bf16, fixed-lag smoother window 24
      (GN-4), random weights from a seed, 32 frames, the step captured into a
      CUDA graph on the first call and replayed after. Every output finite;
-     the maxpool's launches counted over exactly this run (one a replayed
-     frame); under cuDNN's deterministic algorithms, graph replay against
+     the maxpool's and the smoother solve's launches counted over exactly
+     this run (one each a replayed frame); under cuDNN's deterministic algorithms, graph replay against
      the eager step bit for bit on the 32 frames (keypoints, rotations,
      translations, the last carry) for GN-4 "jacfwd", GN-4 "block" and LM-8,
      and the smoother's graphed update against its eager update on a
@@ -186,6 +191,14 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
+# this tool opens ~20 profiler sessions in one process, with CUDA graphs
+# captured between them: CUPTI torn down after a session and set up again for
+# the next crashes in cudaGraphLaunch then (the workaround PyTorch applies to
+# its own graphs, torch/profiler/profiler.py; utils/graphed.py sets it at a
+# capture, this before the first session)
+os.environ.setdefault("TEARDOWN_CUPTI", "0")
+os.environ.setdefault("DISABLE_CUPTI_LAZY_REINIT", "1")
+
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM bytes/s and
 # non-tensor-core f32 operations/s, for the bound of a memory-bound kernel
 HBM_BYTES_PER_S = 3.35e12
@@ -194,7 +207,7 @@ F32_OPS_PER_S = 67e12
 N_FRAMES = 32
 TRAIN_WARMUP, TRAIN_STEPS = 3, 20
 BF16_TOL = dict(rtol=2**-7, atol=2**-9)
-SOURCES = ("maxpool", "augment")
+SOURCES = ("maxpool", "augment", "smoother")
 
 
 def log(msg: str) -> None:
@@ -327,6 +340,7 @@ def phase_build():
         paths = list(pool_.map(_build.build, SOURCES))
     _build.load_module("maxpool")  # as each wrapper binds its library
     _build.load_library("augment")
+    _build.load_library("smoother")
     log(f"built {paths} in {time.perf_counter() - t0:.3f} s")
     for name in SOURCES:  # ptxas -v and the SASS's integer divisions, per kernel
         for line in _build.build_report(name):
@@ -973,7 +987,7 @@ def phase_train():
     counts = _counts()
     losses = torch.stack(losses)
     expect = {"max_pool_3x3_s2": TRAIN_STEPS, "max_pool_3x3_s2_backward": TRAIN_STEPS, "fused_ultra_apply": TRAIN_STEPS,
-              "fused_apply": 0, "fused_warp_apply": 0, "warp_affine_two_pass": 0}
+              "fused_apply": 0, "fused_warp_apply": 0, "warp_affine_two_pass": 0, "lm_solve_cuda": 0}
     if counts != expect:
         raise AssertionError(f"train step launches {counts}, expected {expect} over {TRAIN_STEPS} steps")
     finite = bool(torch.isfinite(losses).all()) and all(bool(torch.isfinite(v).all()) for v in state.params.values())
@@ -1174,7 +1188,7 @@ def phase_train_unfused():
     step_ms = start.elapsed_time(end) / TRAIN_STEPS
     counts = _counts()
     expect = {"max_pool_3x3_s2": TRAIN_STEPS, "max_pool_3x3_s2_backward": TRAIN_STEPS, "fused_ultra_apply": 0,
-              "fused_apply": 0, "fused_warp_apply": 0, "warp_affine_two_pass": TRAIN_STEPS}
+              "fused_apply": 0, "fused_warp_apply": 0, "warp_affine_two_pass": TRAIN_STEPS, "lm_solve_cuda": 0}
     if counts != expect:
         raise AssertionError(f"unfused train launches {counts}, expected {expect} over {TRAIN_STEPS} steps")
     finite = bool(torch.isfinite(losses).all()) and all(bool(torch.isfinite(v).all()) for v in state.params.values())
@@ -1249,6 +1263,91 @@ def unfused_cuda_vs_cpu(cfg):
         raise AssertionError(f"unfused augmentation, CUDA vs CPU: max abs {diff.max().item()}, coords {crd_err}")
     log(f"small f32 unfused augmentation (4, 5, 64, 64), CUDA vs CPU, same draws: max abs diff "
         f"{diff.max().item():.3e}, coords {crd_err:.3e}")
+
+
+SM80_CLOCK_HZ = 1.98e9  # the H100 SXM's boost clock (nvidia-smi, PR 15's log call 11)
+FMA_CYCLES = 4  # the latency of a dependent f32 add, multiply or FMA: the shortest of any dependent f32 op
+
+
+def smoother_bounds(t: int, k: int, iters: int) -> dict:
+    """Least times (ms) of one solve of a window of ``t`` frames and ``k``
+    corners: bytes (the window, the measurements and the config's tensors
+    read once, the window and the cost written once, at HBM_BYTES_PER_S);
+    operations (the multiply-adds of J^T J's band and J^T r alone, at
+    F32_OPS_PER_S; the Jacobian and the Cholesky come on top); and the
+    dependent chain (per iteration and block step of the recursion: 12
+    pivots of a square root, a division and an update, 12 rows of the
+    forward substitution and 12 of the back substitution, each a dot and a
+    division: at least 84 dependent f32 operations of FMA_CYCLES each)."""
+    floats_in = t * 18 + t * k * 2 + t + k * 3 + 4 + 18 + 12
+    floats_out = t * 18 + 1
+    rows_d = 12 + 12 + 12 + 12  # prior or a pair on each side, the pin; the keypoints on a 6x6 corner
+    macs = iters * (t * 144 * rows_d + t * 36 * 2 * k + (t - 1) * 144 * 12 + t * 12 * (rows_d + 2 * k))
+    chain = iters * t * (3 * 12 + 2 * 12 + 2 * 12)
+    return {"bytes": (floats_in + floats_out) * 4 / HBM_BYTES_PER_S * 1e3, "ops": 2 * macs / F32_OPS_PER_S * 1e3,
+            "chain": chain * FMA_CYCLES / SM80_CLOCK_HZ * 1e3}
+
+
+def phase_smoother_kernel():
+    """#7: the smoother's solve (csrc/smoother.cu, ``lm_solve_cuda``) at the
+    serving smoother's shapes (window 24, 8 corners), GN-4 and LM-8, on the
+    solve of a warm window of the gate sequence: against its plain version
+    (``lm_solve_reference``) on the same arguments, and CUDA-event times of
+    the kernel alone and of the plain version captured in a CUDA graph (the
+    served path before the kernel). Returns the GN-4 (kernel ms, plain ms,
+    bound ms, bound by, max abs err) and the launches counted."""
+    import torch
+
+    from perseus_tpu_torch.camera import intrinsics_from_fov
+    from perseus_tpu_torch.datagen.labeling import cube_corners
+    from perseus_tpu_torch.lie import SE3
+    from perseus_tpu_torch.smoother import fixed_lag, lm
+    from perseus_tpu_torch.smoother.residuals import keypoint_projection_residual
+    from perseus_tpu_torch.utils.graphed import Graphed
+
+    intr = intrinsics_from_fov(torch.tensor(1.0, device="cuda"), 256, 256)
+    corners = cube_corners(0.035, device="cuda")
+    cases = (("GN-4", lm.SmootherConfig(window=24, max_iterations=4, accept_reject=False)),
+             ("LM-8", lm.SmootherConfig(window=24)))
+    launches, out = 0, None
+    for label, cfg in cases:
+        sm = fixed_lag.FixedLagSmoother(cfg, intr, corners)
+        meas = _gate_sequence(sm, 56)
+        carry = sm.init(sm.coarse_pose_from_keypoints(meas[0]))
+        for m in meas[:55]:  # past both jumps and resets: 24 valid frames
+            carry, _ = sm.graphed_update(carry, m)
+        seen = []
+        with mock.patch.object(fixed_lag, "lm_solve", lambda *a: seen.append(a) or lm.lm_solve(*a)):
+            sm.update(carry, meas[55])
+        args = seen[0]
+        before = lm.lm_solve_cuda.launches
+        got, cost = lm.lm_solve_cuda(*args)
+        torch.cuda.synchronize()
+        ref, ref_cost = lm.lm_solve_reference(*args)
+        err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+        zero = torch.zeros(8, 2, device="cuda")
+        px = [keypoint_projection_residual(SE3(w.rot[-1], w.trans[-1]), intr, zero, corners, None)
+              for w in (got, ref)]
+        gap = (px[0] - px[1]).abs().max().item()
+        if not (bool(torch.isfinite(cost)) and int(args[3].sum()) == 24 and err < 1e-3 and gap < 0.1):
+            raise AssertionError(f"#7 {label}: kernel vs plain max abs {err}, corners {gap} px, cost "
+                                 f"{cost.item()} vs {ref_cost.item()}, {int(args[3].sum())} valid frames")
+        kernel_ms = time_ms(lambda: lm.lm_solve_cuda(*args), iters=200, warmup=10)
+        plain = Graphed(lm.lm_solve_reference, "cuda")
+        plain_ms = time_ms(lambda: plain(*args), iters=50, warmup=3)
+        n = lm.lm_solve_cuda.launches - before
+        if n != 211:
+            raise AssertionError(f"#7 {label}: {n} launches, expected 211 (1 checked, 10 + 200 timed)")
+        launches += n
+        b = smoother_bounds(24, 8, cfg.max_iterations)
+        log(f"#7 smoother solve {label} (window 24, 8 corners, {cfg.max_iterations} iterations): kernel "
+            f"{kernel_ms:.6f} ms, plain version as a CUDA graph {plain_ms:.6f} ms (CUDA events); bounds: bytes "
+            f"{b['bytes']:.6f} ms, operations {b['ops']:.6f} ms, dependent chain {b['chain']:.6f} ms; kernel vs "
+            f"plain max abs {err:.3e}, newest corners {gap:.3e} px, cost {cost.item():.6g} vs {ref_cost.item():.6g}; "
+            f"launches {n} ({card_line()})")
+        if out is None:
+            out = (kernel_ms, plain_ms, b["chain"], "dependent chain", err)
+    return out, launches
 
 
 def _serving_config(smoother=None):
@@ -1490,6 +1589,7 @@ def phase_serving():
     from perseus_tpu_torch.models import pool, resnet
     from perseus_tpu_torch.runtime.sources import SyntheticSource
     from perseus_tpu_torch.runtime.streaming import StreamingConfig, StreamingPipeline
+    from perseus_tpu_torch.smoother import lm
     from perseus_tpu_torch.smoother.lm import SmootherConfig
 
     model = resnet.KeypointCNN(
@@ -1509,6 +1609,7 @@ def phase_serving():
     torch.cuda.synchronize()
     log(f"serving: capture and 4 frames {time.perf_counter() - t0:.3f} s (host clock)")
     pool.max_pool_3x3_s2.launches = 0
+    lm.lm_solve_cuda.launches = 0
     t0 = time.perf_counter()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1518,16 +1619,18 @@ def phase_serving():
     wall_ms = (time.perf_counter() - t0) * 1e3 / N_FRAMES
     event_ms = start.elapsed_time(end) / N_FRAMES
     launches = pool.max_pool_3x3_s2.launches
+    smoother_launches = lm.lm_solve_cuda.launches
     if not finite:
         raise AssertionError("serving path produced non-finite keypoints, image or pose")
     if kps.shape != (N_FRAMES, 8, 2) or rots.shape != (N_FRAMES, 3, 3):
         raise AssertionError(f"unexpected output shapes {tuple(kps.shape)} {tuple(rots.shape)}")
-    if launches != N_FRAMES or pipeline._step.graphs != 1:
-        raise AssertionError(f"maxpool kernel launched {launches} times on {N_FRAMES} replayed frames, "
-                             f"{pipeline._step.graphs} graphs captured")
+    if launches != N_FRAMES or smoother_launches != N_FRAMES or pipeline._step.graphs != 1:
+        raise AssertionError(f"maxpool kernel launched {launches} times and the smoother's {smoother_launches} on "
+                             f"{N_FRAMES} replayed frames, {pipeline._step.graphs} graphs captured")
     log(
         f"serving GN-4 window 24 (graph replay): {N_FRAMES} frames, {event_ms:.4f} ms/frame (CUDA events), "
-        f"{wall_ms:.4f} ms/frame (host clock); maxpool launches {launches}"
+        f"{wall_ms:.4f} ms/frame (host clock); maxpool launches {launches}, smoother solve launches "
+        f"{smoother_launches}"
     )
 
     graph_vs_eager(sd, frames)
@@ -1583,7 +1686,7 @@ def phase_serving():
     if not (on_card[3] and errs[0] < 1e-3 and max(errs[1:]) < 1e-4):
         raise AssertionError(f"CUDA and CPU pipelines disagree: keypoints/rot/trans {errs}")
     log(f"small f32 pipeline, CUDA vs CPU: max abs diff keypoints/rot/trans {errs}")
-    return launches
+    return launches, smoother_launches
 
 
 LOOP_ROWS, LOOP_VAL_ROWS = 1024, 256  # the train loop's decoded split: 4 steps an epoch at batch 256
@@ -1615,7 +1718,8 @@ def _counted_train(label, cfg, run_ids, expect_steps, val_batches):
     counts = _counts()
     run_ids.append(result["run_id"])
     expect = {"max_pool_3x3_s2": expect_steps + val_batches, "max_pool_3x3_s2_backward": expect_steps,
-              "fused_ultra_apply": expect_steps, "fused_apply": 0, "fused_warp_apply": 0, "warp_affine_two_pass": 0}
+              "fused_ultra_apply": expect_steps, "fused_apply": 0, "fused_warp_apply": 0, "warp_affine_two_pass": 0,
+              "lm_solve_cuda": 0}
     if counts != expect:
         raise AssertionError(f"{label}: launches {counts} inside train(), expected {expect}")
     state = result["state"]
@@ -2025,9 +2129,9 @@ def phase_datagen_eval():
     wall = time.perf_counter() - t0
     counts = _counts()
     pose_launches = counts["max_pool_3x3_s2"]
-    # one detection per frame, the cold start's detection of frame 0, and
-    # the eager warm-up before the step's capture
-    expect = {k: (cfg.frames + 1 + WARMUP_CALLS if k == "max_pool_3x3_s2" else 0) for k in counts}
+    # one detection and smoother solve per frame, the cold start's of frame
+    # 0, and the eager warm-up's before the step's capture
+    expect = {k: (cfg.frames + 1 + WARMUP_CALLS if k in ("max_pool_3x3_s2", "lm_solve_cuda") else 0) for k in counts}
     finite = all(np.isfinite(res[k]).all() for k in ("pose_rmse_mm", "pose_rmse_deg", "per_frame_rot_deg",
                                                       "per_frame_trans_mm"))
     log(f"7c pose, ResNet-18 random weights bf16, {job}: RMSE {res['pose_rmse_mm']:.4f} mm / "
@@ -2389,7 +2493,8 @@ def phase_eval_tools():
     log(f"8d stream_frames, serving config (GN-4 window 24), {n} frames: {wall / n * 1e3:.3f} ms/frame (host "
         f"clock, keypoints and image read back each frame); launches {counts}; equal to frame-by-frame calls: "
         f"keypoints {same_kp}, poses {same_pose}")
-    if n != STREAM_FRAMES or counts != dict(zero, max_pool_3x3_s2=STREAM_FRAMES) or not (finite and same_kp and same_pose):
+    if n != STREAM_FRAMES or counts != dict(zero, max_pool_3x3_s2=STREAM_FRAMES, lm_solve_cuda=STREAM_FRAMES) or not (
+            finite and same_kp and same_pose):
         raise AssertionError(f"8d: {n} frames, launches {counts}, finite {finite}, equal {same_kp} {same_pose}")
     log(f"phase 8 launches, summed over its counted runs: {dict(total)}")
     return total
@@ -2399,7 +2504,7 @@ DP_WORLD = 2  # phase 9's ranks, sharing cuda:0 through gloo
 DP_STEPS = 3  # 9a's steps
 DP_TIMEOUT = 480  # s: a rank group still running then fails the phase
 DP_TRAIN_EXPECT = {"max_pool_3x3_s2": 5, "max_pool_3x3_s2_backward": 4, "fused_apply": 0, "fused_warp_apply": 0,
-                   "fused_ultra_apply": 4, "warp_affine_two_pass": 0}  # per rank and epoch: 4 steps, 1 val batch
+                   "fused_ultra_apply": 4, "warp_affine_two_pass": 0, "lm_solve_cuda": 0}  # per rank and epoch: 4 steps, 1 val batch
 
 
 def _free_port() -> int:
@@ -3014,7 +3119,7 @@ def phase_scripts_tools():
     from perseus_tpu_torch.train.config import TrainConfig
     from perseus_tpu_torch.utils.graphed import WARMUP_CALLS
 
-    total = {"max_pool_3x3_s2": 0, "max_pool_3x3_s2_backward": 0, "fused_ultra_apply": 0}
+    total = {"max_pool_3x3_s2": 0, "max_pool_3x3_s2_backward": 0, "fused_ultra_apply": 0, "lm_solve_cuda": 0}
 
     def add(counts):
         for k in total:
@@ -3109,11 +3214,13 @@ def phase_scripts_tools():
         val_batches = -(-len(val_ds) // acfg.batch_size)
         ho_batches = -(-len(ho_ds) // acfg.batch_size)
         # train(): a step each and its val batches each epoch; the final state's and the EMA's val
-        # RMSE; the holdout's; the pose scorer's frames, cold start and capture warm-up
+        # RMSE; the holdout's; the pose scorer's frames, cold start and capture warm-up (its
+        # smoother solves likewise)
         _expect_launches("train_at_scale", counts, {
             "max_pool_3x3_s2": steps + acfg.epochs * val_batches + 2 * val_batches + ho_batches
             + SCALE_POSE_FRAMES + 1 + WARMUP_CALLS,
-            "max_pool_3x3_s2_backward": steps, "fused_ultra_apply": steps})
+            "max_pool_3x3_s2_backward": steps, "fused_ultra_apply": steps,
+            "lm_solve_cuda": SCALE_POSE_FRAMES + 1 + WARMUP_CALLS})
         add(counts)
         errors = [k for k in m if k.endswith("_error")]
         with open(os.path.join(acfg.output_dir, "metrics.json")) as f:
@@ -3169,7 +3276,8 @@ def phase_scripts_tools():
                                 window=SCALE_POSE_WINDOW, device="cuda")
         counts = _counts()
         _expect_launches("pose multi", counts,
-                         {"max_pool_3x3_s2": SCALE_POSE_JOBS * (SCALE_POSE_FRAMES + 1 + WARMUP_CALLS)})
+                         {"max_pool_3x3_s2": SCALE_POSE_JOBS * (SCALE_POSE_FRAMES + 1 + WARMUP_CALLS),
+                          "lm_solve_cuda": SCALE_POSE_JOBS * (SCALE_POSE_FRAMES + 1 + WARMUP_CALLS)})
         add(counts)
         if multi["pose_multi_n_videos"] != SCALE_POSE_JOBS or not all(
                 math.isfinite(v) for k, v in multi.items() if k.startswith("pose_multi_")):
@@ -3201,7 +3309,8 @@ def phase_scripts_tools():
         rows, _ = _timed("diag_pose_job", diag_pose_job.diag_rows, pose_jobs[0][1], pose_jobs[0][2], state_dict=sd,
                          window=SCALE_POSE_WINDOW, device="cuda")
         counts = _counts()
-        _expect_launches("diag", counts, {"max_pool_3x3_s2": SCALE_POSE_FRAMES + 1 + WARMUP_CALLS})
+        _expect_launches("diag", counts, {"max_pool_3x3_s2": SCALE_POSE_FRAMES + 1 + WARMUP_CALLS,
+                                          "lm_solve_cuda": SCALE_POSE_FRAMES + 1 + WARMUP_CALLS})
         add(counts)
         if not all(np.isfinite(rows[k]).all() for k in diag_pose_job.COLUMNS):
             raise AssertionError("10.9 diag rows not finite")
@@ -3216,7 +3325,10 @@ def phase_scripts_tools():
         on_card, card_s = _timed("pose_backend_check on the card", pbc.dump_arrays, bcfg, frames, meta, sd,
                                  fixed_keypoints=gt_kp, device="cuda")
         counts = _counts()
-        _expect_launches("backend check", counts, {"max_pool_3x3_s2": SCALE_POSE_FRAMES + 1 + WARMUP_CALLS})
+        # the pipeline's frames (the cold start's and the warm-up's too), then
+        # the smoother alone on the fixed keypoints (its warm-up too)
+        _expect_launches("backend check", counts, {"max_pool_3x3_s2": SCALE_POSE_FRAMES + 1 + WARMUP_CALLS,
+                                                   "lm_solve_cuda": 2 * SCALE_POSE_FRAMES + 1 + 2 * WARMUP_CALLS})
         add(counts)
         on_cpu, cpu_s = _timed("pose_backend_check on the CPU", pbc.dump_arrays, bcfg, frames.cpu(), meta,
                                {k: v.cpu() for k, v in sd.items()}, fixed_keypoints=gt_kp, device="cpu")
@@ -3315,7 +3427,7 @@ def phase_bench_entry():
     # the streaming chains' frames, and the eager warm-up before the step's capture
     stm_n = bench.STREAMING_WARMUP_K + bench.STREAMING_REPS * bench.STREAMING_K + WARMUP_CALLS
     trn_n = (bench.TRAIN_WARMUPS + bench.TRAIN_REPS) * bench.TRAIN_K
-    expect = {"detector": {"max_pool_3x3_s2": det_n}, "streaming": {"max_pool_3x3_s2": stm_n},
+    expect = {"detector": {"max_pool_3x3_s2": det_n}, "streaming": {"max_pool_3x3_s2": stm_n, "lm_solve_cuda": stm_n},
               "train": {"max_pool_3x3_s2": trn_n, "max_pool_3x3_s2_backward": trn_n, "fused_ultra_apply": trn_n}}
     total = dict.fromkeys(_counts(), 0)
     for name, want in expect.items():
@@ -3410,9 +3522,10 @@ def main() -> int:
         bwd, bwd_err = run("kernel: maxpool backward", phase_pool_backward_kernel)
         augk = run("kernel: augmentation", phase_augment_kernels)
         warpk = run("kernel: two-pass warp", phase_warp_kernel)
+        smk, smk_launches = run("kernel: smoother solve", phase_smoother_kernel)
         train_counts, branch_counts, _ = run("train", phase_train)
         unfused_counts, _ = run("train unfused (device-resident split)", phase_train_unfused)
-        serving_launches = run("serving", phase_serving)
+        serving_launches, serving_solves = run("serving", phase_serving)
         run("train loop", phase_train_loop)
         pose_launches, val_launches = run("datagen and eval", phase_datagen_eval)
         tools = run("eval and runtime tools", phase_eval_tools)
@@ -3457,6 +3570,11 @@ def main() -> int:
         # logged beside it, is a direct 2-D bilinear warp)
         _entry("warp_affine_two_pass", aug_src, "perseus_tpu/augment/warp_pallas.py:70",
                unfused_counts["warp_affine_two_pass"] + tools["warp_affine_two_pass"], warpk[4], warpk[:4], None),
+        # replaces no Pallas kernel (the JAX package jits the smoother); the
+        # pose scorer's solves in 7c equal its maxpool launches (checked there)
+        _entry("lm_solve_cuda", "perseus_tpu_torch/csrc/smoother.cu", None,
+               smk_launches + serving_solves + pose_launches + tools["lm_solve_cuda"] + scripts["lm_solve_cuda"]
+               + benched["lm_solve_cuda"], smk[4], smk[:4], None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

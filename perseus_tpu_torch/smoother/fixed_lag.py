@@ -6,7 +6,8 @@ appends the new measurement, initializes the new frame by dynamics
 propagation, gates whole-frame detector failures, runs LM and emits the
 newest pose. The window size is fixed; warm-up is a validity mask. All
 decisions (gate, reset) are tensor ``where``s, so an update on the card never
-reads back to the host.
+reads back to the host. The solve is the span ``smoother.solve``
+(``utils/spans.py``); on the card it is one kernel (``lm.lm_solve_cuda``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from perseus_tpu_torch.lie import SE3, se3_identity
 from perseus_tpu_torch.smoother.lm import SmootherConfig, WindowState, lm_solve, predict_next
 from perseus_tpu_torch.smoother.residuals import keypoint_projection_residual
 from perseus_tpu_torch.utils.graphed import Graphed
+from perseus_tpu_torch.utils.spans import span
 
 __all__ = ["FixedLagSmoother", "SmootherCarry", "median"]
 
@@ -205,10 +207,11 @@ class FixedLagSmoother:
             prior_w = torch.where(r, 0.0, prior_w)
             prior_v = torch.where(r, 0.0, prior_v)
 
-        window, _ = lm_solve(
-            cfg, window, measurements, valid, self.intrinsics, self.points_body,
-            SE3(prior_rot, prior_trans), prior_w, prior_v, self.camera_pose,
-        )
+        with span("smoother.solve", self.device):
+            window, _ = lm_solve(
+                cfg, window, measurements, valid, self.intrinsics, self.points_body,
+                SE3(prior_rot, prior_trans), prior_w, prior_v, self.camera_pose,
+            )
         new_carry = SmootherCarry(
             window=window,
             measurements=measurements,

@@ -17,10 +17,25 @@ Everything runs with no host reads and no host literals, so a window on the
 card stays on the card and an update captures into a CUDA graph
 (``FixedLagSmoother.graphed_update``); the iteration count is fixed (no
 early exit), with accept/reject by ``torch.where``.
+
+On the card the "jacfwd" solve is one launch of a hand-written kernel
+(``csrc/smoother.cu``; it replaces no Pallas kernel: the JAX package jits
+the smoother):
+
+  =====================  ================================  ==========================
+  entry                  kernel                            plain version
+  =====================  ================================  ==========================
+  :func:`lm_solve_cuda`  ``perseus_smoother_lm_f32``       :func:`lm_solve_reference`
+  =====================  ================================  ==========================
+
+:func:`lm_solve` takes the kernel for a CUDA window with the "jacfwd" solver
+and the plain version otherwise (a CPU window, the "block" solver). Each
+launch adds one to ``lm_solve_cuda.launches``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -37,6 +52,7 @@ from perseus_tpu_torch.lie import (
     se3_log,
     se3_logmap_derivative,
 )
+from perseus_tpu_torch.models import _build
 from perseus_tpu_torch.smoother import residuals as res
 
 __all__ = [
@@ -48,6 +64,8 @@ __all__ = [
     "assemble_normal_equations",
     "solve_block_tridiag",
     "lm_solve",
+    "lm_solve_cuda",
+    "lm_solve_reference",
     "predict_next",
 ]
 
@@ -397,9 +415,30 @@ def lm_solve(
     """Damped Gauss-Newton (LM) for ``cfg.max_iterations`` steps.
 
     Returns (optimized window, final cost). With ``accept_reject`` a step
-    that does not lower the cost is rejected and the damping raised, by
-    ``torch.where``; without, every step is taken at constant damping.
+    that does not lower the cost is rejected and the damping raised;
+    without, every step is taken at constant damping. A CUDA window with
+    the "jacfwd" solver goes to the kernel (:func:`lm_solve_cuda`), any
+    other to :func:`lm_solve_reference`.
     """
+    solve = lm_solve_cuda if cfg.solver == "jacfwd" and state.trans.device.type == "cuda" else lm_solve_reference
+    return solve(cfg, state, measurements, valid, intrinsics, points_body, prior_pose, prior_ang_vel, prior_vel,
+                 camera_pose)
+
+
+def lm_solve_reference(
+    cfg: SmootherConfig,
+    state: WindowState,
+    measurements: torch.Tensor,
+    valid: torch.Tensor,
+    intrinsics: Intrinsics,
+    points_body: torch.Tensor,
+    prior_pose: SE3,
+    prior_ang_vel: torch.Tensor,
+    prior_vel: torch.Tensor,
+    camera_pose: SE3 | None = None,
+) -> tuple[WindowState, torch.Tensor]:
+    """:func:`lm_solve` in PyTorch ops, for both solvers on any device; with
+    accept/reject by ``torch.where``."""
     t = state.rot.shape[0]
     tangent_dim = 12 * t
     dtype, device = state.trans.dtype, state.trans.device
@@ -458,6 +497,131 @@ def lm_solve(
         )
         final_cost = torch.where(accept, new_cost, old_cost)
     return state, final_cost
+
+
+class _Params(ctypes.Structure):
+    """``csrc/smoother.cu``'s ``Params``, field for field."""
+
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in (
+            "rot", "trans", "ang_vel", "vel", "meas", "valid", "fx", "fy", "cx", "cy", "points",
+            "prior_rot", "prior_trans", "prior_w", "prior_v", "cam_rot", "cam_trans",
+            "out_rot", "out_trans", "out_ang_vel", "out_vel", "out_cost")]
+        + [(name, ctypes.c_int) for name in ("t", "k", "vel_body", "robust", "iterations", "accept_reject")]
+        + [(name, ctypes.c_float) for name in (
+            "dt", "sigma_dyn_rot", "sigma_dyn_trans", "inv_sigma_cw", "inv_sigma_cv", "inv_sigma_kp",
+            "inv_sigma_prior_pose", "inv_sigma_prior_vel", "inv_pin", "robust_delta", "inv_robust_delta",
+            "lambda_init", "lambda_up", "lambda_down", "lambda_min", "lambda_max")]
+    )
+
+
+def _inv_f32(x: float) -> float:
+    """1 / x in f32, as the card computes ``tensor / x`` for a Python float x
+    (the f32 reciprocal of x rounded to f32; the double quotient of two f32
+    values rounds to the f32 quotient)."""
+    return 1.0 / ctypes.c_float(x).value
+
+
+@functools.lru_cache(maxsize=64)
+def _scalars(cfg: SmootherConfig) -> dict:
+    """The kernel's launch arguments from the config."""
+    if cfg.vel_frame not in ("world", "body"):
+        raise ValueError(f"unknown vel_frame {cfg.vel_frame!r}")
+    robust = 0
+    if cfg.robust_keypoint_delta > 0.0:
+        if cfg.robust_kernel not in ("huber", "gm"):
+            raise ValueError(f"unknown robust_kernel {cfg.robust_kernel!r}")
+        robust = 1 if cfg.robust_kernel == "huber" else 2
+    delta = cfg.robust_keypoint_delta
+    return dict(
+        vel_body=int(cfg.vel_frame == "body"), robust=robust, iterations=cfg.max_iterations,
+        accept_reject=int(cfg.accept_reject), dt=cfg.dt, sigma_dyn_rot=cfg.sigma_dynamics_rot,
+        sigma_dyn_trans=cfg.sigma_dynamics_trans, inv_sigma_cw=_inv_f32(cfg.sigma_const_ang_vel),
+        inv_sigma_cv=_inv_f32(cfg.sigma_const_vel), inv_sigma_kp=_inv_f32(cfg.sigma_keypoint_px),
+        inv_sigma_prior_pose=_inv_f32(cfg.sigma_prior_pose), inv_sigma_prior_vel=_inv_f32(cfg.sigma_prior_vel),
+        inv_pin=_inv_f32(1e-3), robust_delta=delta, inv_robust_delta=_inv_f32(delta) if delta > 0.0 else 0.0,
+        lambda_init=cfg.lambda_init, lambda_up=cfg.lambda_up, lambda_down=cfg.lambda_down,
+        lambda_min=cfg.lambda_min, lambda_max=cfg.lambda_max,
+    )
+
+
+@functools.cache
+def _kernel():
+    """The launch of ``csrc/smoother.cu``, built and loaded at first use, its
+    shared-memory attribute set once."""
+    lib = _build.load_library("smoother")
+    err = lib.perseus_smoother_init()
+    if err != 0:
+        raise RuntimeError(f"lm_solve_cuda: setting the kernel's shared memory failed, cudaError {err}")
+    launch = lib.perseus_smoother_lm_f32
+    launch.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    return launch
+
+
+def lm_solve_cuda(
+    cfg: SmootherConfig,
+    state: WindowState,
+    measurements: torch.Tensor,
+    valid: torch.Tensor,
+    intrinsics: Intrinsics,
+    points_body: torch.Tensor,
+    prior_pose: SE3,
+    prior_ang_vel: torch.Tensor,
+    prior_vel: torch.Tensor,
+    camera_pose: SE3 | None = None,
+) -> tuple[WindowState, torch.Tensor]:
+    """:func:`lm_solve_reference` with the "jacfwd" solver as one launch of
+    ``csrc/smoother.cu`` on a float32 CUDA window: every iteration in one
+    thread block, with the config's settings as launch arguments (any
+    window size whose arrays fit a block's shared memory, any number of
+    corners and iterations, accept/reject or not). Raises for any other
+    device or dtype, or a window too large."""
+    name = "lm_solve_cuda"
+    dev = state.trans.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if state.trans.dtype != torch.float32:
+        raise TypeError(f"{name}: window dtype {state.trans.dtype} (the kernel takes float32)")
+    t, k = state.rot.shape[0], points_body.shape[0]
+    if (state.rot.shape != (t, 3, 3) or any(x.shape != (t, 3) for x in state[1:]) or points_body.shape != (k, 3)
+            or measurements.shape != (t, k, 2) or valid.shape != (t,)):
+        raise ValueError(f"{name}: a window of {t} frames and {k} corners takes rot (T, 3, 3), trans, ang_vel, "
+                         f"vel (T, 3), measurements (T, K, 2), valid (T,), points_body (K, 3)")
+    scalars = _scalars(cfg)
+    launch = _kernel()
+
+    def f32(x: torch.Tensor) -> torch.Tensor:
+        return x.to(dev, torch.float32).contiguous()
+
+    ins = dict(
+        rot=f32(state.rot), trans=f32(state.trans), ang_vel=f32(state.ang_vel), vel=f32(state.vel),
+        meas=f32(measurements), valid=f32(valid), fx=f32(intrinsics.fx), fy=f32(intrinsics.fy),
+        cx=f32(intrinsics.cx), cy=f32(intrinsics.cy), points=f32(points_body), prior_rot=f32(prior_pose.rot),
+        prior_trans=f32(prior_pose.trans), prior_w=f32(prior_ang_vel), prior_v=f32(prior_vel),
+    )
+    if camera_pose is not None:
+        ins.update(cam_rot=f32(camera_pose.rot), cam_trans=f32(camera_pose.trans))
+    out = WindowState(*(torch.empty_like(ins[key]) for key in ("rot", "trans", "ang_vel", "vel")))
+    cost = torch.empty((), dtype=torch.float32, device=dev)
+    params = _Params(
+        **{key: x.data_ptr() for key, x in ins.items()},
+        out_rot=out.rot.data_ptr(), out_trans=out.trans.data_ptr(), out_ang_vel=out.ang_vel.data_ptr(),
+        out_vel=out.vel.data_ptr(), out_cost=cost.data_ptr(), t=t, k=k, **scalars,
+    )
+    with torch.cuda.device(dev):
+        err = launch(ctypes.byref(params), torch.cuda.current_stream(dev).cuda_stream)
+    if err == 1:  # cudaErrorInvalidValue: the entry launched nothing
+        raise ValueError(f"{name}: a window of {t} frames and {k} corners needs more shared memory than a block "
+                         f"has (227 KB)")
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed, cudaError {err}")
+    lm_solve_cuda.launches += 1
+    return out, cost
+
+
+# the count of the kernel's launches, added to right after a launch
+lm_solve_cuda.launches = 0
 
 
 def predict_next(state: WindowState, dt: float, vel_frame: str = "world") -> tuple[SE3, torch.Tensor, torch.Tensor]:

@@ -20,6 +20,7 @@ wrapper is the eager call.
 from __future__ import annotations
 
 import gc
+import os
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -37,9 +38,10 @@ def kernel_wrappers() -> tuple:
     (one added where the wrapper launches its kernel)."""
     from perseus_tpu_torch.augment import fused, warp
     from perseus_tpu_torch.models import pool
+    from perseus_tpu_torch.smoother import lm
 
     return (pool.max_pool_3x3_s2, pool.max_pool_3x3_s2_backward, fused.fused_apply,
-            fused.fused_warp_apply, fused.fused_ultra_apply, warp.warp_affine_two_pass)
+            fused.fused_warp_apply, fused.fused_ultra_apply, warp.warp_affine_two_pass, lm.lm_solve_cuda)
 
 
 def _launch_counts() -> dict:
@@ -118,6 +120,13 @@ class Graphed:
             )
 
     def _capture(self, leaves: list, spec: pytree.TreeSpec) -> _Capture:
+        # a profiler session after the first sets CUPTI up again after its
+        # teardown, which crashes in cudaGraphLaunch once CUDA graphs live in
+        # the process; PyTorch keeps CUPTI for its own graphs (torch.compile's
+        # cudagraphs, torch/profiler/profiler.py), and so does a process that
+        # captures here
+        os.environ.setdefault("TEARDOWN_CUPTI", "0")
+        os.environ.setdefault("DISABLE_CUPTI_LAZY_REINIT", "1")
         inputs = [
             torch.empty_like(x, device=self.device).copy_(x) if isinstance(x, torch.Tensor) else None
             for x in leaves

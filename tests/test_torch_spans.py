@@ -33,10 +33,10 @@ from perseus_tpu_torch.train.config import TrainConfig
 from perseus_tpu_torch.utils import spans
 
 SERVE_SPANS = ("serve.frame", "graphed.copy_in", "graphed.replay", "graphed.clone_out", "serve.detector",
-               "smoother.update")
+               "smoother.update", "smoother.solve")
 SERVE_PARENTS = {"serve.frame": None, "graphed.copy_in": "serve.frame", "graphed.replay": "serve.frame",
                  "graphed.clone_out": "serve.frame", "serve.detector": "graphed.replay",
-                 "smoother.update": "graphed.replay"}
+                 "smoother.update": "graphed.replay", "smoother.solve": "smoother.update"}
 TRAIN_PARENTS = {"train.step": None, "augment.sample": "train.step", "augment.apply": "train.step",
                  "augment.apply.kernel": "augment.apply", "model.forward_backward": "train.step",
                  "optimizer.update": "train.step"}
@@ -311,7 +311,7 @@ def test_a_replay_with_spans_on_is_the_spans_off_replay_with_event_nodes(monkeyp
     (kinds_off, kernels_off), (kinds_on, kernels_on) = (_graph_nodes(caps[on_].graph) for on_ in (False, True))
     assert kernels_on == kernels_off and kinds_on[CU_GRAPH_NODE_TYPE_KERNEL] == kinds_off[CU_GRAPH_NODE_TYPE_KERNEL]
     inner = len(caps[True].spans.inner)
-    assert inner == 2  # serve.detector, smoother.update
+    assert inner == 3  # serve.detector, smoother.update, smoother.solve
     assert kinds_on - kinds_off == collections.Counter({CU_GRAPH_NODE_TYPE_EVENT_RECORD: 2 + 2 * inner})
     assert not kinds_off - kinds_on
     per_frame = _by_id(records)
@@ -324,6 +324,7 @@ def test_a_replay_with_spans_on_is_the_spans_off_replay_with_event_nodes(monkeyp
         assert replay.device_ms > 0 and by_name["graphed.copy_in"].device_ms > 0
         assert by_name["serve.detector"].host_start_ns is None
         assert 0 < by_name["serve.detector"].device_ms + by_name["smoother.update"].device_ms <= replay.device_ms
+        assert 0 < by_name["smoother.solve"].device_ms <= by_name["smoother.update"].device_ms
 
 
 @pytest.mark.cuda
