@@ -8,8 +8,9 @@ Each is one ``run.run_cell`` of the cell, untraced. For each seed of
 training cell checks set-up's steps, so it runs no window). For each
 ``fault:seeds`` of ``--controls`` the same with the reference put in the
 program's place: ``fp8`` one precision below the configuration's (every
-cell), ``half_batch`` the loss over half of each batch (training cells);
-a serving control runs the cell's ``control_frames`` frames. One JSON
+cell), ``half_batch`` the loss over half of each batch (training cells),
+``gn4`` the program's smoother cut to GN-4 (smoothed camera cells); a
+serving control runs the cell's ``control_frames`` frames. One JSON
 line per run on stdout. The benchmark's own runs never run this; it needs
 the card.
 """

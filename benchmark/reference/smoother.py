@@ -35,7 +35,7 @@ import math
 
 import torch
 
-from benchmark.reference.detector import matmul_precision
+from benchmark.reference.pipeline import matmul_precision
 
 _SMALL = 1e-12
 

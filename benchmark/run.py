@@ -5,11 +5,13 @@
 from the root of a checkout. The cell is ``workloads/<cell>.json``: its
 configuration (``configs/<config>.json``), its traffic's generator
 (``traffic/<kind>.py``) with the traffic's parameters, the chips it needs
-and the limits of its check. Its metrics are those that ``BENCHMARK.json``
-gives it (a metric's ``workloads``, or every cell that reports what a
-per-layer metric moves); each per-layer metric is read by
-``metrics/<name>.py``. A later cell, configuration or metric is a new file
-and new entries, found by name.
+and the limits of its check. A camera configuration's detector is
+``detectors/<detector>.py`` (the key ``detector``, ``resnet18`` where it is
+absent). Its metrics are those that ``BENCHMARK.json`` gives it (a metric's
+``workloads``, or every cell that reports what a per-layer metric moves);
+each per-layer metric is read by ``metrics/<name>.py``. A later cell,
+configuration, detector or metric is a new file and new entries, found by
+name.
 
 A run: set-up (weights and data from the seed, the program built and warmed
 up on every shape the cell uses; ``setup_s`` runs from the start of this
@@ -73,12 +75,23 @@ def traffic_module(kind: str):
     return importlib.import_module(f"benchmark.traffic.{kind}")
 
 
-def metric_reader(name: str):
-    """``metrics/<name>.py``'s ``read`` (names may hold dots, so by path)."""
-    spec = importlib.util.spec_from_file_location(f"benchmark_metric_{name}", os.path.join(HERE, "metrics", f"{name}.py"))
+def _load(folder: str, name: str):
+    """The module ``<folder>/<name>.py`` (names may hold dots, so by path)."""
+    spec = importlib.util.spec_from_file_location(f"benchmark_{folder}_{name}", os.path.join(HERE, folder, f"{name}.py"))
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def metric_reader(name: str):
+    """``metrics/<name>.py``'s ``read``."""
+    return _load("metrics", name).read
+
+
+def detector(config: dict):
+    """The detector plug-in a camera configuration names (``detector``,
+    ``resnet18`` where the key is absent): ``detectors/<name>.py``."""
+    return _load("detectors", config.get("detector", "resnet18"))
 
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool, device, *, start: float = START,

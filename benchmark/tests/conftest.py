@@ -17,32 +17,36 @@ TINY = {
     "serve-gn4-stream": {"kp_gap_px": 1e-3, "pose_gap_px": 1e-2, "flags_mismatch": 0.0},
     "serve-detect-only": {"kp_gap_px": 1e-3},
     "train-resident-b256": {"loss1_gap": 1e-3, "stats_gap": 1e-3, "grad_gap": 1e-3, "update_gap": 0.03},
+    "serve-lm8-live": {"kp_gap_px": 1e-3, "smoother_gap_median_px": 1e-3, "flags_mismatch": 0.0},
 }
+# a configuration's CPU size: camera configurations (they have frames) and
+# training configurations
+TINY_STREAM = dict(frame_h=40, frame_w=56, model_h=32, model_w=32, compute_dtype="float32")
+TINY_TRAIN = dict(n_train=16, batch_size=4, input_resolution=32, compute_dtype="float32", storage_dtype="float32",
+                  learning_rate=1e-5)
 
 
 @pytest.fixture
 def tiny_bench(tmp_path, monkeypatch):
-    """The benchmark's data files and ``BENCHMARK.json`` copied under
-    ``tmp_path`` with tiny cells ``tiny-<cell>``; ``benchmark.run`` reads
-    from the copy."""
+    """The benchmark's data files, detectors and ``BENCHMARK.json`` copied
+    under ``tmp_path`` with tiny cells ``tiny-<cell>`` on tiny
+    configurations ``tiny-<config>``; ``benchmark.run`` reads from the
+    copy."""
     from benchmark import run
 
     root = tmp_path / "benchmark"
-    for d in ("configs", "workloads", "metrics"):
+    for d in ("configs", "workloads", "metrics", "detectors"):
         shutil.copytree(os.path.join(BENCH, d), root / d)
-    stream = json.loads((root / "configs" / "rgbd-stream-gn4.json").read_text())
-    stream.update(name="tiny-stream", frame_h=40, frame_w=56, model_h=32, model_w=32, compute_dtype="float32")
-    stream["smoother"]["window"] = 4
-    (root / "configs" / "tiny-stream.json").write_text(json.dumps(stream))
-    train = json.loads((root / "configs" / "rgbd-train-b256.json").read_text())
-    train.update(name="tiny-train", n_train=16, batch_size=4, input_resolution=32, compute_dtype="float32",
-                 storage_dtype="float32", learning_rate=1e-5)
-    (root / "configs" / "tiny-train.json").write_text(json.dumps(train))
     small = dict(pool_frames=4, warmup_frames=1, settle_block=2, settle_max_s=1, traced_frames=2,
                  sample_frames=3, control_frames=4, traced_steps=2)
     for name, limits in TINY.items():
         cell = json.loads((root / "workloads" / f"{name}.json").read_text())
-        cell.update(name=f"tiny-{name}", config="tiny-train" if "train" in name else "tiny-stream", limits=limits)
+        config = json.loads((root / "configs" / f"{cell['config']}.json").read_text())
+        config.update(name=f"tiny-{cell['config']}", **(TINY_STREAM if "frame_h" in config else TINY_TRAIN))
+        if "smoother" in config:
+            config["smoother"]["window"] = 4
+        (root / "configs" / f"{config['name']}.json").write_text(json.dumps(config))
+        cell.update(name=f"tiny-{name}", config=config["name"], limits=limits)
         cell["params"].update({k: v for k, v in small.items() if k in cell["params"]})
         (root / "workloads" / f"tiny-{name}.json").write_text(json.dumps(cell))
     # the tiny cells take the real cells' metrics in a copy of BENCHMARK.json

@@ -37,17 +37,22 @@ def _wrap_pipeline(monkeypatch, change):
     monkeypatch.setattr(camera.Driver, "setup", broken_setup)
 
 
-def test_serving_sound_run_is_correct(tiny_bench):
-    assert _correct("tiny-serve-gn4-stream")[0]
+SMOOTHED = ["tiny-serve-gn4-stream", "tiny-serve-lm8-live"]
 
 
-def test_serving_state_left_unchanged_is_caught(tiny_bench, monkeypatch):
+@pytest.mark.parametrize("cell", SMOOTHED)
+def test_serving_sound_run_is_correct(tiny_bench, cell):
+    assert _correct(cell)[0]
+
+
+@pytest.mark.parametrize("cell", SMOOTHED)
+def test_serving_state_left_unchanged_is_caught(tiny_bench, monkeypatch, cell):
     _wrap_pipeline(monkeypatch, lambda out, carry: (out[0], out[1], carry, out[3]))
-    ok, checks = _correct("tiny-serve-gn4-stream")
+    ok, checks = _correct(cell)
     assert not ok and checks["flags_mismatch"]["value"] > 0
 
 
-@pytest.mark.parametrize("cell", ["tiny-serve-gn4-stream", "tiny-serve-detect-only"])
+@pytest.mark.parametrize("cell", SMOOTHED + ["tiny-serve-detect-only"])
 def test_serving_answer_altered_where_produced_is_caught(tiny_bench, monkeypatch, cell):
     def alter(out, carry):
         kp = out[0].clone()
@@ -57,6 +62,23 @@ def test_serving_answer_altered_where_produced_is_caught(tiny_bench, monkeypatch
     _wrap_pipeline(monkeypatch, alter)
     ok, checks = _correct(cell)
     assert not ok and checks["kp_gap_px"]["value"] > 0.5
+
+
+@pytest.mark.parametrize("cell,reading", [("tiny-serve-gn4-stream", "pose_gap_px"),
+                                          ("tiny-serve-lm8-live", "smoother_gap_median_px")])
+def test_serving_pose_altered_where_produced_is_caught(tiny_bench, monkeypatch, cell, reading):
+    from benchmark.traffic import camera
+
+    _wrap_pipeline(monkeypatch, lambda out, carry: out[:3] + (camera._Pose(out[3].rot, out[3].trans + 0.01),))
+    ok, checks = _correct(cell)
+    assert not ok and checks[reading]["value"] > 10 * checks[reading]["limit"]
+
+
+def test_the_lm8_smoother_cut_to_gn4_is_caught(tiny_bench):
+    result, _ = run.run_cell("tiny-serve-lm8-live", 77, 0.3, False, CPU, control="gn4")
+    checks = result["checks"]
+    assert not result["correct"] and checks["smoother_gap_median_px"]["value"] > checks["smoother_gap_median_px"]["limit"]
+    assert checks["kp_gap_px"]["value"] <= checks["kp_gap_px"]["limit"]  # the detector is as it was
 
 
 def test_training_sound_run_is_correct(tiny_bench):
@@ -86,7 +108,7 @@ def test_training_half_batch_is_caught(tiny_bench, monkeypatch):
     assert not ok and checks["loss1_gap"]["value"] > 1e-3
 
 
-@pytest.mark.parametrize("cell", ["tiny-serve-gn4-stream", "tiny-serve-detect-only", "tiny-train-resident-b256"])
+@pytest.mark.parametrize("cell", SMOOTHED + ["tiny-serve-detect-only", "tiny-train-resident-b256"])
 def test_the_control_fails_at_a_tiny_size(tiny_bench, cell):
     result, _ = run.run_cell(cell, 99, 0.3, False, CPU, control="fp8")
     assert not result["correct"]
@@ -94,7 +116,7 @@ def test_the_control_fails_at_a_tiny_size(tiny_bench, cell):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cell,faults", [("serve-gn4-stream", ["fp8"]), ("serve-detect-only", ["fp8"]),
-                                         ("train-resident-b256", ["fp8", "half_batch"])])
+                                         ("train-resident-b256", ["fp8", "half_batch"]), ("serve-lm8-live", ["fp8", "gn4"])])
 def test_the_control_fails_each_cell_at_its_size(cuda, cell, faults):
     for fault in faults:
         for seed in (101, 202, 303):

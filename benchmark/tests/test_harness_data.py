@@ -66,7 +66,7 @@ def _line(result):
 
 
 @pytest.mark.parametrize("trace", [0, 1])
-@pytest.mark.parametrize("cell", ["serve-gn4-stream", "serve-detect-only", "train-resident-b256"])
+@pytest.mark.parametrize("cell", ["serve-gn4-stream", "serve-detect-only", "train-resident-b256", "serve-lm8-live"])
 def test_each_cell_runs_end_to_end_on_the_cpu(tiny_bench, cell, trace):
     tiny, _ = run.load_cell(f"tiny-{cell}")  # dropped into the copy, found by name
     result, lines = run.run_cell(f"tiny-{cell}", 2**33 + 17, 0.5, bool(trace), torch.device("cpu"),
@@ -100,6 +100,28 @@ def test_a_metric_dropped_into_a_copy_is_reported_with_no_file_edited(tiny_bench
     result, _ = run.run_cell("tiny-train-resident-b256", 7, 0.3, True, torch.device("cpu"),
                              device_type=torch.autograd.DeviceType.CPU)
     assert "serve.frames_traced" not in result["metrics"]  # the cell reports no frame_ms_p50
+
+
+def test_a_detector_dropped_into_a_copy_is_found_by_name_with_no_file_edited(tiny_bench):
+    """A detector a later PR adds: its plug-in file and a configuration
+    that names it. Here a copy of ``resnet18`` under another name, which
+    gives the ``resnet18`` cell's readings and counts."""
+    plugin = tiny_bench / "detectors" / "resnet18_copy.py"
+    plugin.write_text("from benchmark.detectors.resnet18 import *  # noqa: F401,F403\n")
+    configs, workloads = tiny_bench / "configs", tiny_bench / "workloads"
+    config = json.loads((configs / "tiny-rgbd-stream-gn4.json").read_text())
+    (configs / "tiny-copy.json").write_text(json.dumps(dict(config, name="tiny-copy", detector="resnet18_copy")))
+    cell = json.loads((workloads / "tiny-serve-gn4-stream.json").read_text())
+    (workloads / "tiny-copy-stream.json").write_text(json.dumps(dict(cell, name="tiny-copy-stream", config="tiny-copy")))
+    copy = run.detector(run.load_cell("tiny-copy-stream")[1])
+    assert copy.__file__ == str(plugin)
+    assert copy.forward_flops(config) == run.detector(config).forward_flops(config)
+    cpu = torch.device("cpu")
+    readings = [run.run_cell(name, 31, 1e9, False, cpu, max_units=4)[0]["checks"]
+                for name in ("tiny-serve-gn4-stream", "tiny-copy-stream")]
+    assert readings[0] == readings[1] and set(readings[0]) == {"kp_gap_px", "pose_gap_px", "flags_mismatch"}
+    with pytest.raises(FileNotFoundError):
+        run.detector(dict(config, detector="no_such_detector"))
 
 
 def test_the_measured_path_without_a_card_fails_with_no_result():

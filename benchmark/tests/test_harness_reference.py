@@ -13,6 +13,7 @@ import torch
 from benchmark import counts, inputs
 from benchmark.reference import augment as ref_aug
 from benchmark.reference import detector as ref_det
+from benchmark.reference import pipeline as ref_pipe
 from benchmark.reference import smoother as ref_smo
 from benchmark.reference import train as ref_train
 
@@ -38,6 +39,27 @@ def test_counts():
     assert counts.roofline_seconds(989e12, 0) == pytest.approx(1.0)
 
 
+def test_the_resnet18_plugin_is_what_the_camera_cells_ran_before_it():
+    """The plug-in's weights are ``inputs.resnet18_weights``' bit for bit,
+    its count is ``counts``' (4,840,243,200 a 4x256x256 frame), and its
+    reference calls are the ResNet reference's."""
+    from benchmark import run
+
+    c = _config("rgbd-stream-gn4")
+    plugin = run.detector(c)
+    assert "detector" not in c and plugin.__file__ == os.path.join(BENCH, "detectors", "resnet18.py")
+    assert plugin.forward_flops(c) == 4_840_243_200 == counts.resnet18_forward_flops(1, 4, 256, 256, 16)
+    assert plugin.streaming_fields(c) == {} and plugin.HEAD == ("fc.weight", "fc.bias")
+    tiny = dict(c, model_h=32, model_w=32)
+    a, b = plugin.weights(77, tiny, CPU), inputs.resnet18_weights(77, 4, 8, CPU, random_bn=True)
+    assert list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a)
+    x = torch.rand(1, 4, 32, 32, generator=torch.Generator().manual_seed(3))
+    prepared = plugin.prepare(a)
+    assert all(torch.equal(prepared[k], v) for k, v in ref_det.fold(b).items())
+    assert torch.equal(plugin.features(prepared, x), ref_det.features(ref_det.fold(b), x))
+    assert torch.equal(plugin.detect(prepared, x, quantize=True), ref_det.detect(ref_det.fold(b), x, quantize=True))
+
+
 def test_folded_detector_matches_the_port(weights):
     from perseus_tpu_torch.models import resnet
 
@@ -59,10 +81,10 @@ def test_preprocess_and_denormalize_match_the_pipeline(weights):
         StreamingConfig(num_channels=4, model_h=32, model_w=32, amp=False, smooth=False), state_dict=weights, device="cpu"
     )
     for f in frames:
-        x = ref_det.preprocess(torch.as_tensor(f), c["cube_scale"], c["depth_near_m"], c["depth_far_m"], 32, 32)
+        x = ref_pipe.preprocess(torch.as_tensor(f), c["cube_scale"], c["depth_near_m"], c["depth_far_m"], 32, 32)
         torch.testing.assert_close(x[0].permute(1, 2, 0), pipe.preprocess(torch.as_tensor(f)), rtol=1e-6, atol=1e-5)
         kp, *_ = pipe(f, None)
-        ref = ref_det.denormalize(ref_det.detect(ref_det.fold(weights), x), 32, 32)[0]
+        ref = ref_pipe.denormalize(ref_det.detect(ref_det.fold(weights), x), 32, 32)[0]
         torch.testing.assert_close(ref, kp, rtol=1e-4, atol=1e-3)
 
 

@@ -6,11 +6,12 @@ are back on the host; a frame's latency runs from the hand-over to that
 read-back. The frames cycle through a pool drawn from the seed; each is
 first written into one reused host buffer, as a camera SDK writes every
 grab into the same image (ZED's ``retrieve_image`` into one ``sl.Mat``),
-outside the latency. The detector's weights are seeded; its head is calibrated so
-that its output is the projection of a cube at a seeded pose plus a
-frame-dependent jitter of ``jitter_px`` (random weights alone give
-keypoints the smoother cannot fit), and the smoother's carry starts at that
-pose, as a controller's cold start would.
+outside the latency. The detector is the plug-in the configuration names
+(``detectors/<name>.py``, ``run.detector``). Its weights are seeded; its
+head is calibrated so that its output is the projection of a cube at a
+seeded pose plus a frame-dependent jitter of ``jitter_px`` (random weights
+alone give keypoints the smoother cannot fit), and the smoother's carry
+starts at that pose, as a controller's cold start would.
 
 Parameters (the workload file's ``params``): ``pool_frames``, ``nan_share``
 (depth holes), ``jitter_px``, ``warmup_frames`` (after the capture's own
@@ -20,13 +21,19 @@ reference), ``smooth`` (false: the detector alone, the reference's live
 loop), ``control_frames`` (frames of a control run).
 
 The check: for a seeded sample of the window's frames, the first and the
-last among them, the reference runs preprocess, the f32 detector with BN
-folded by itself and denormalize on the same host frame (``kp_gap_px``,
-the widest keypoint gap), and, with the smoother, one update from the
-program's carry before that frame on the reference's own keypoints
-(``pose_gap_px``: the widest gap between the cube corners projected under
-the program's and the reference's newest pose; ``flags_mismatch``: the
-gate's validity flags, frame count and reject count that differ).
+last among them, the reference runs preprocess, the plug-in's f32 detector
+on weights it prepared itself and denormalize on the same host frame
+(``kp_gap_px``, the widest keypoint gap), and, with the smoother, one
+update from the program's carry before that frame: on the reference's own
+keypoints where the cell's limits name ``pose_gap_px`` (the detector and
+the smoother together: the widest gap over the sampled frames), on the
+program's keypoints where they name ``smoother_gap_median_px`` (the
+smoother alone: the median frame's gap, as an accept / reject step that
+changes the cost by a few parts in ten million is decided either way by
+sound float32 and float64 solves alike). A gap is the widest between the
+cube corners projected under the program's and the reference's newest
+pose; ``flags_mismatch`` counts the gate's validity flags, frame count and
+reject count that differ after that update.
 """
 
 from __future__ import annotations
@@ -37,8 +44,8 @@ import time
 import numpy as np
 import torch
 
-from benchmark import harness, inputs
-from benchmark.reference import detector as ref_det
+from benchmark import harness, inputs, run
+from benchmark.reference import pipeline as ref_pipe
 from benchmark.reference import smoother as ref_smo
 
 
@@ -78,8 +85,9 @@ def init_carry(rot, trans, window: int, n_kp: int) -> dict:
 
 class _ControlPipeline:
     """The reference in the program's place, one precision lower than the
-    configuration states: float8 convolutions in the detector (bf16
-    stated), the smoother in f32 with TF32 (f32 with TF32 off stated)."""
+    configuration states: the detector's ``quantize`` (for ResNet-18
+    float8 convolutions; bf16 stated), the smoother in f32 with TF32 (f32
+    with TF32 off stated)."""
 
     def __init__(self, driver):
         self.d = driver
@@ -87,7 +95,7 @@ class _ControlPipeline:
     def __call__(self, frame, carry):
         d = self.d
         x = d.preprocess(torch.as_tensor(frame, device=d.device))
-        kp = ref_det.denormalize(ref_det.detect(d.folded_ref, x, quantize=True), d.h, d.w)[0]
+        kp = ref_pipe.denormalize(d.detector.detect(d.prepared_ref, x, quantize=True), d.h, d.w)[0]
         if not d.smooth:
             return kp, x, carry, d.identity
         carry, (rot, trans) = ref_smo.update(d.smoother_cfg, carry, kp, d.corners.float(), d.k, tf32=True)
@@ -110,22 +118,23 @@ class Driver:
         self.h, self.w = config["model_h"], config["model_w"]
         self.fh, self.fw = config["frame_h"], config["frame_w"]
         self.smoother_cfg = config["smoother"]
+        self.detector = run.detector(config)
         self.k = ref_smo.intrinsics(config["camera_fov"], self.h, self.w)
         self.corners = torch.tensor(inputs.CORNER_SIGNS * config["cube_scale"], dtype=torch.float64, device=device)
         self.identity = _Pose(torch.eye(3, device=device), torch.zeros(3, device=device))
 
     def preprocess(self, frame: torch.Tensor) -> torch.Tensor:
         c = self.config
-        return ref_det.preprocess(frame, c["cube_scale"], c["depth_near_m"], c["depth_far_m"], self.h, self.w)
+        return ref_pipe.preprocess(frame, c["cube_scale"], c["depth_near_m"], c["depth_far_m"], self.h, self.w)
 
     def _weights(self) -> dict:
         """Seeded weights with the calibrated head (f32, on the device)."""
         c = self.config
-        sd = inputs.resnet18_weights(self.seed, c["num_channels"], c["n_keypoints"], self.device, random_bn=True)
-        folded = ref_det.fold(sd)
+        sd = self.detector.weights(self.seed, c, self.device)
+        prepared = self.detector.prepare(sd)
         x = torch.cat([self.preprocess(torch.as_tensor(f, device=self.device)) for f in self.frames])
         with torch.no_grad():
-            feats = ref_det.features(folded, x).double()
+            feats = self.detector.features(prepared, x).double()
         mu = feats.mean(0)
         g = torch.as_tensor(inputs.head_draw(self.seed, 2 * c["n_keypoints"], feats.shape[1]), device=self.device)
         spread = ((feats - mu) @ g.T).std()
@@ -133,12 +142,15 @@ class Driver:
         rot, trans = inputs.cube_pose(self.seed)
         target = inputs.project_corners(rot, trans, c["cube_scale"], c["camera_fov"], self.h, self.w)
         target = np.stack([target[:, 0] * 2 / (self.w - 1) - 1, target[:, 1] * 2 / (self.h - 1) - 1], -1).reshape(-1)
-        sd["fc.weight"] = weight.float()
-        sd["fc.bias"] = (torch.as_tensor(target, device=self.device) - weight @ mu).float()
+        head_w, head_b = self.detector.HEAD
+        sd[head_w] = weight.float()
+        sd[head_b] = (torch.as_tensor(target, device=self.device) - weight @ mu).float()
         self.pose0 = (rot, trans)
         return sd
 
-    def setup(self) -> None:
+    def setup(self, smoother: dict | None = None) -> None:
+        """``smoother``: the program's smoother settings where they are not
+        the configuration's (a fault)."""
         from perseus_tpu_torch.lie import SE3
         from perseus_tpu_torch.runtime.streaming import StreamingConfig, StreamingPipeline
         from perseus_tpu_torch.smoother.lm import SmootherConfig
@@ -152,7 +164,8 @@ class Driver:
         cfg = StreamingConfig(
             num_channels=c["num_channels"], model_h=self.h, model_w=self.w, cube_scale=c["cube_scale"],
             apply_depth_clamp=True, amp=c["compute_dtype"] == "bfloat16", smooth=self.smooth,
-            smoother=SmootherConfig(**self.smoother_cfg), camera_fov=c["camera_fov"],
+            smoother=SmootherConfig(**(smoother or self.smoother_cfg)), camera_fov=c["camera_fov"],
+            **self.detector.streaming_fields(c),
         )
         self.pipeline = StreamingPipeline(cfg, state_dict=self.sd, device=self.device)
         rot, trans = (torch.as_tensor(a, dtype=torch.float32, device=self.device) for a in self.pose0)
@@ -203,10 +216,17 @@ class Driver:
 
     def use_control(self, fault: str = "fp8") -> None:
         """Put the reference, one precision lower, in the program's place
-        (the one control a serving cell has: ``fault`` is ``fp8``)."""
+        (``fp8``, the control), or plant a fault in the program: ``gn4``,
+        its smoother cut to 4 iterations without accept / reject (a faster
+        smoother than the configuration states), checked against the
+        configuration's."""
+        if fault == "gn4" and self.smooth:
+            self.free()
+            self.setup(dict(self.smoother_cfg, max_iterations=4, accept_reject=False))
+            return
         if fault != "fp8":
             raise ValueError(f"a camera cell has no control {fault!r}")
-        self.folded_ref = ref_det.fold(self.sd)
+        self.prepared_ref = self.detector.prepare(self.sd)
         self.pipeline = _ControlPipeline(self)
         rot, trans = (torch.as_tensor(a, dtype=torch.float32, device=self.device) for a in self.pose0)
         n_kp = self.config["n_keypoints"]
@@ -263,21 +283,26 @@ class Driver:
         sample = inputs.sample_indices(self.seed, n, self.p["sample_frames"], always=(0, -1))
         x = torch.cat([self.preprocess(torch.as_tensor(self.frames[i % len(self.frames)], device=self.device)) for i in sample])
         with torch.no_grad():
-            ref_kp = ref_det.denormalize(ref_det.detect(ref_det.fold(self.sd), x), self.h, self.w).double()
+            ref_kp = ref_pipe.denormalize(self.detector.detect(self.detector.prepare(self.sd), x), self.h, self.w).double()
         prog_kp = torch.as_tensor(np.stack([self.outputs[i][0] for i in sample]), device=self.device).double()
         readings = {"kp_gap_px": float((prog_kp - ref_kp).abs().max())}
         if not self.smooth:
             return readings
-        pose_gap, flags = 0.0, 0
+        alone = "smoother_gap_median_px" in self.cell["limits"]
+        kps = prog_kp if alone else ref_kp
+        gaps, flags = [], 0
         for j, i in enumerate(sample):
             carry = _carry_dict(self.carries[i], torch.float64)
-            new, (rot, trans) = ref_smo.update(self.smoother_cfg, carry, ref_kp[j], self.corners, self.k)
+            new, (rot, trans) = ref_smo.update(self.smoother_cfg, carry, kps[j], self.corners, self.k)
             p_rot, p_trans = (torch.as_tensor(a, device=self.device).double() for a in self.outputs[i][1])
             gap = ref_smo.project(p_rot, p_trans, self.corners, self.k) - ref_smo.project(rot, trans, self.corners, self.k)
-            pose_gap = max(pose_gap, float(torch.linalg.vector_norm(gap, dim=-1).max()))
+            gaps.append(float(torch.linalg.vector_norm(gap, dim=-1).max()))
             after = _carry_dict(self.carries[i + 1], torch.float64)
             flags += int((after["valid"] != new["valid"]).sum())
             flags += int(after["frames_seen"] != new["frames_seen"]) + int(after["consec_rejects"] != new["consec_rejects"])
-        readings["pose_gap_px"] = pose_gap
+        if alone:
+            readings["smoother_gap_median_px"] = float(np.median(gaps))
+        else:
+            readings["pose_gap_px"] = max(gaps)
         readings["flags_mismatch"] = float(flags)
         return readings
