@@ -207,7 +207,7 @@ F32_OPS_PER_S = 67e12
 N_FRAMES = 32
 TRAIN_WARMUP, TRAIN_STEPS = 3, 20
 BF16_TOL = dict(rtol=2**-7, atol=2**-9)
-SOURCES = ("maxpool", "augment", "smoother")
+SOURCES = ("maxpool", "augment", "smoother", "window_attn")
 
 
 def log(msg: str) -> None:
@@ -341,6 +341,7 @@ def phase_build():
     _build.load_module("maxpool")  # as each wrapper binds its library
     _build.load_library("augment")
     _build.load_library("smoother")
+    _build.load_library("window_attn")
     log(f"built {paths} in {time.perf_counter() - t0:.3f} s")
     for name in SOURCES:  # ptxas -v and the SASS's integer divisions, per kernel
         for line in _build.build_report(name):
@@ -987,7 +988,8 @@ def phase_train():
     counts = _counts()
     losses = torch.stack(losses)
     expect = {"max_pool_3x3_s2": TRAIN_STEPS, "max_pool_3x3_s2_backward": TRAIN_STEPS, "fused_ultra_apply": TRAIN_STEPS,
-              "fused_apply": 0, "fused_warp_apply": 0, "warp_affine_two_pass": 0, "lm_solve_cuda": 0}
+              "fused_apply": 0, "fused_warp_apply": 0, "warp_affine_two_pass": 0, "lm_solve_cuda": 0,
+              "window_attention": 0}
     if counts != expect:
         raise AssertionError(f"train step launches {counts}, expected {expect} over {TRAIN_STEPS} steps")
     finite = bool(torch.isfinite(losses).all()) and all(bool(torch.isfinite(v).all()) for v in state.params.values())
@@ -1188,7 +1190,8 @@ def phase_train_unfused():
     step_ms = start.elapsed_time(end) / TRAIN_STEPS
     counts = _counts()
     expect = {"max_pool_3x3_s2": TRAIN_STEPS, "max_pool_3x3_s2_backward": TRAIN_STEPS, "fused_ultra_apply": 0,
-              "fused_apply": 0, "fused_warp_apply": 0, "warp_affine_two_pass": TRAIN_STEPS, "lm_solve_cuda": 0}
+              "fused_apply": 0, "fused_warp_apply": 0, "warp_affine_two_pass": TRAIN_STEPS, "lm_solve_cuda": 0,
+              "window_attention": 0}
     if counts != expect:
         raise AssertionError(f"unfused train launches {counts}, expected {expect} over {TRAIN_STEPS} steps")
     finite = bool(torch.isfinite(losses).all()) and all(bool(torch.isfinite(v).all()) for v in state.params.values())
@@ -1348,6 +1351,95 @@ def phase_smoother_kernel():
         if out is None:
             out = (kernel_ms, plain_ms, b["chain"], "dependent chain", err)
     return out, launches
+
+
+WINDOW_ATTN_CHAIN = 20  # kernel #8 launches a timed graph holds
+
+
+def window_attn_bound_ms(heads: int, side: int, c: int, size: int) -> tuple[float, str]:
+    """Least time of one kernel #8 call: q, k and v read once and the output
+    written once (``size`` bytes a value), the bias table and head scales
+    read once, at the HBM rate; or q.k and P.V at the bf16 tensor rate."""
+    bytes_ = side * side * 4 * c * size + heads * (64 * 64 + 1) * 4
+    ops = 2 * 2 * 64 * side * side * c
+    bytes_ms, ops_ms = bytes_ / HBM_BYTES_PER_S * 1e3, ops / 989e12 * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def phase_window_attn_kernel():
+    """#8: SwinV2's window attention (csrc/window_attn.cu,
+    ``swinv2.window_attention``) at each stage's shape of the published
+    SwinV2-T (batch 1, bf16, the second block of a stage: shifted by 4 but
+    in stage 4), on the benchmark plug-in's seeded weights' tables: against
+    its plain version in f32, CUDA-event times of the kernel and of the
+    plain version captured in a CUDA graph; then the served SwinV2-T frame
+    (``StreamingPipeline``, detector ``swinv2_t``, no smoother): replays
+    equal to the eager step bit for bit, 12 launches a frame, the replay's
+    device time. Returns stage 1's (kernel ms, plain ms, bound ms, bound by),
+    its max abs error and the launches counted."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from benchmark.detectors import swinv2_t as plugin
+    from perseus_tpu_torch.models import swinv2
+    from perseus_tpu_torch.runtime.streaming import StreamingConfig, StreamingPipeline
+    from perseus_tpu_torch.utils.graphed import Graphed
+
+    with open("benchmark/configs/rgbd-stream-swinv2t.json") as f:
+        config = json.load(f)
+    sd = plugin.weights(20, config, "cuda")
+    arch = swinv2.swinv2_tiny_patch4_window8_256(4, 16)
+    prepared = swinv2.prepare(sd, arch, torch.bfloat16)
+    before = swinv2.window_attention.launches
+    out = None
+    for stage, _, heads, c, side, window, shift in arch.stages():
+        p = f"layers.{stage}.blocks.1"
+        args = (prepared[f"{p}.scale"], prepared[f"{p}.bias"], heads, side, side, window, shift)
+        qkv = torch.randn(1, side * side, 3 * c, device="cuda", generator=torch.Generator("cuda").manual_seed(stage))
+        qkv = qkv.to(torch.bfloat16)
+        got = swinv2.window_attention(qkv, *args)
+        want = swinv2.window_attention_reference(qkv.float(), *args)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs().max().item()
+        if not err <= 2**-8 * want.abs().max().item():
+            raise AssertionError(f"#8 stage {stage + 1}: kernel vs plain max abs {err}")
+        # device time a launch: 20 launches replayed as one graph (called
+        # back to back from Python, each launch waits on the wrapper's host
+        # work, ~20 us)
+        chain = Graphed(lambda x: [swinv2.window_attention(x, *args) for _ in range(WINDOW_ATTN_CHAIN)][-1], "cuda")
+        kernel_ms = time_ms(lambda: chain(qkv), iters=20, warmup=2) / WINDOW_ATTN_CHAIN
+        host_ms = time_ms(lambda: swinv2.window_attention(qkv, *args), iters=200, warmup=10)
+        plain = Graphed(lambda x: swinv2.window_attention_reference(x, *args), "cuda")
+        plain_ms = time_ms(lambda: plain(qkv), iters=50, warmup=3)
+        bound, by = window_attn_bound_ms(heads, side, c, 2)
+        log(f"#8 window attention stage {stage + 1} ({side}x{side} tokens, {heads} heads, shift {shift}, bf16): "
+            f"kernel {kernel_ms:.6f} ms ({host_ms:.6f} a call launched from Python), plain version as a CUDA "
+            f"graph {plain_ms:.6f} ms (CUDA events); bound "
+            f"{bound:.6f} ms ({by}); kernel vs plain f32 max abs {err:.3e} of {want.abs().max().item():.3e} "
+            f"({card_line()})")
+        if out is None:
+            out = ((kernel_ms, plain_ms, bound, by), err)
+    rng = np.random.default_rng(6)
+    frames = []
+    for _ in range(4):
+        frame = rng.random((config["frame_h"], config["frame_w"], 4), dtype=np.float32)
+        frame[..., 3] = 0.15 + 0.3 * frame[..., 3]
+        frame[rng.random(frame.shape[:2]) < 0.01, 3] = np.nan
+        frames.append(frame)
+    pipeline = StreamingPipeline(StreamingConfig(num_channels=4, amp=True, smooth=False, detector="swinv2_t"), sd,
+                                 device="cuda")
+    got = [pipeline(f, None)[0] for f in frames]
+    n0 = swinv2.window_attention.launches
+    frame_ms = time_ms(lambda: pipeline(frames[0], None), iters=50, warmup=5)
+    per_frame = (swinv2.window_attention.launches - n0) / 55
+    same = all(torch.equal(g, pipeline.step_eager(f, None)[0]) for f, g in zip(frames, got))
+    log(f"#8 served SwinV2-T frame (bf16, detector alone): {frame_ms:.6f} ms a call (CUDA events, pageable frame "
+        f"copied in); {per_frame:.1f} kernel #8 launches a frame; replays equal to the eager step bit for bit: {same}")
+    if per_frame != 12 or not same or pipeline._step.graphs != 1:
+        raise AssertionError(f"#8 served frame: {per_frame} launches a frame, equal {same}")
+    return out[0], out[1], swinv2.window_attention.launches - before
 
 
 def _serving_config(smoother=None):
@@ -1719,7 +1811,7 @@ def _counted_train(label, cfg, run_ids, expect_steps, val_batches):
     run_ids.append(result["run_id"])
     expect = {"max_pool_3x3_s2": expect_steps + val_batches, "max_pool_3x3_s2_backward": expect_steps,
               "fused_ultra_apply": expect_steps, "fused_apply": 0, "fused_warp_apply": 0, "warp_affine_two_pass": 0,
-              "lm_solve_cuda": 0}
+              "lm_solve_cuda": 0, "window_attention": 0}
     if counts != expect:
         raise AssertionError(f"{label}: launches {counts} inside train(), expected {expect}")
     state = result["state"]
@@ -2504,7 +2596,8 @@ DP_WORLD = 2  # phase 9's ranks, sharing cuda:0 through gloo
 DP_STEPS = 3  # 9a's steps
 DP_TIMEOUT = 480  # s: a rank group still running then fails the phase
 DP_TRAIN_EXPECT = {"max_pool_3x3_s2": 5, "max_pool_3x3_s2_backward": 4, "fused_apply": 0, "fused_warp_apply": 0,
-                   "fused_ultra_apply": 4, "warp_affine_two_pass": 0, "lm_solve_cuda": 0}  # per rank and epoch: 4 steps, 1 val batch
+                   "fused_ultra_apply": 4, "warp_affine_two_pass": 0, "lm_solve_cuda": 0,
+                   "window_attention": 0}  # per rank and epoch: 4 steps, 1 val batch
 
 
 def _free_port() -> int:
@@ -3523,6 +3616,7 @@ def main() -> int:
         augk = run("kernel: augmentation", phase_augment_kernels)
         warpk = run("kernel: two-pass warp", phase_warp_kernel)
         smk, smk_launches = run("kernel: smoother solve", phase_smoother_kernel)
+        wak, wak_err, wak_launches = run("kernel: window attention", phase_window_attn_kernel)
         train_counts, branch_counts, _ = run("train", phase_train)
         unfused_counts, _ = run("train unfused (device-resident split)", phase_train_unfused)
         serving_launches, serving_solves = run("serving", phase_serving)
@@ -3575,6 +3669,9 @@ def main() -> int:
         _entry("lm_solve_cuda", "perseus_tpu_torch/csrc/smoother.cu", None,
                smk_launches + serving_solves + pose_launches + tools["lm_solve_cuda"] + scripts["lm_solve_cuda"]
                + benched["lm_solve_cuda"], smk[4], smk[:4], None),
+        # replaces no Pallas kernel (the JAX package has no transformer
+        # detector); SwinV2-T runs only in its own phase
+        _entry("window_attention", "perseus_tpu_torch/csrc/window_attn.cu", None, wak_launches, wak_err, wak, None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

@@ -4,8 +4,10 @@ Port of ``perseus_tpu/runtime/streaming.py``. One call per frame runs
 
   preprocess (NaN/Inf depth -> 0, depth / cube_scale, deterministic near/far
   clamp, center crop)
-  -> folded-BN ResNet-18 forward (bf16 with ``amp``), whose stem maxpool is
-     the CUDA kernel of ``models/pool.py``
+  -> the detector (bf16 with ``amp``) that ``StreamingConfig.detector``
+     names: the folded-BN ResNet-18, whose stem maxpool is the CUDA kernel
+     of ``models/pool.py``, or SwinV2-T (``models/swinv2.py``), whose window
+     attention is kernel #8
   -> keypoint denormalization
   -> fixed-lag smoother update
 
@@ -36,7 +38,7 @@ from perseus_tpu_torch.augment.ops import depth_plane_clamp
 from perseus_tpu_torch.camera import center_crop_hw, denormalize_pixel_coordinates, intrinsics_from_fov
 from perseus_tpu_torch.datagen.labeling import cube_corners
 from perseus_tpu_torch.lie import SE3, se3_identity
-from perseus_tpu_torch.models import resnet
+from perseus_tpu_torch.models import resnet, swinv2
 from perseus_tpu_torch.smoother.fixed_lag import FixedLagSmoother, SmootherCarry
 from perseus_tpu_torch.smoother.lm import SmootherConfig
 from perseus_tpu_torch.train import checkpoint as ckpt
@@ -46,9 +48,27 @@ from perseus_tpu_torch.utils.spans import span
 __all__ = ["StreamingConfig", "StreamingPipeline", "stream_frames", "run_display_loop", "main"]
 
 
+def _prepare_swinv2_t(sd: dict, cfg: "StreamingConfig", compute_dtype: torch.dtype) -> dict:
+    arch = swinv2.swinv2_tiny_patch4_window8_256(cfg.num_channels, 2 * cfg.smoother.n_keypoints)
+    return swinv2.prepare(sd, arch, compute_dtype)
+
+
+# StreamingConfig.detector -> (prepare(state_dict, cfg, compute_dtype),
+# apply(prepared, x NCHW, compute_dtype) -> (B, 2K) normalized keypoints)
+DETECTORS = {
+    "resnet18": (lambda sd, cfg, dtype: resnet.fold_batchnorm(sd),
+                 lambda folded, x, dtype: resnet.keypoint_cnn_apply_folded(folded, x, compute_dtype=dtype)),
+    "swinv2_t": (_prepare_swinv2_t, swinv2.swinv2_apply),
+}
+
+
 @dataclass(frozen=True)
 class StreamingConfig:
-    """Streaming pipeline configuration (the JAX package's, field for field)."""
+    """Streaming pipeline configuration: the JAX package's field for field,
+    and ``detector``, which it lacks (the JAX package serves ResNet-18
+    alone): ``"resnet18"``, the ResNet-18 ``KeypointCNN``, or
+    ``"swinv2_t"``, SwinV2-T (``models/swinv2.py``'s published preset with
+    ``num_channels`` inputs and 2 x ``smoother.n_keypoints`` outputs)."""
 
     model_path: str = f"{ROOT}/outputs/models/latest"
     num_channels: int = 3  # 3 -> RGB model, 4 -> RGBD model
@@ -65,15 +85,18 @@ class StreamingConfig:
     # smoother corner scale that may differ from cube_scale (0 -> cube_scale)
     depth_in_cube_units: bool = False
     corner_scale: float = 0.0
+    detector: str = "resnet18"
 
 
 class StreamingPipeline:
     """Frame -> (keypoints, image, carry, pose) on ``device``.
 
-    ``state_dict`` is the detector's parameters and BN statistics in the
-    port's layout (``convert.from_jax_params``, ``KeypointCNN.state_dict()``);
-    when None it is loaded from ``cfg.model_path``: a port checkpoint
-    directory (what ``train()`` writes) or a ``.pth``.
+    ``state_dict`` is the detector's parameters: for ResNet-18 its parameters
+    and BN statistics in the port's layout (``convert.from_jax_params``,
+    ``KeypointCNN.state_dict()``), folded here; for SwinV2-T the official
+    repository's names, prepared here (``swinv2.prepare``); either is kept
+    as ``folded``, the weights as served. When None it is loaded from ``cfg.model_path``: a port checkpoint directory (what
+    ``train()`` writes) or a ``.pth``.
     """
 
     def __init__(
@@ -83,12 +106,15 @@ class StreamingPipeline:
         device: str | torch.device | None = "cuda",
     ):
         self.cfg = cfg
+        if cfg.detector not in DETECTORS:
+            raise ValueError(f"StreamingConfig.detector {cfg.detector!r}: one of {tuple(DETECTORS)}")
+        prepare, self._detect = DETECTORS[cfg.detector]
         self.device = resolve_device(device)
         if state_dict is None:
             state_dict = ckpt.load_model(cfg.model_path)
         sd = {k: v.detach().to(self.device, torch.float32) for k, v in state_dict.items()}
-        self.folded = resnet.fold_batchnorm(sd)
         self.compute_dtype = torch.bfloat16 if cfg.amp else torch.float32
+        self.folded = prepare(sd, cfg, self.compute_dtype)
 
         self.smoother = None
         if cfg.smooth:
@@ -137,7 +163,7 @@ class StreamingPipeline:
         image = self.preprocess(torch.as_tensor(frame, dtype=torch.float32, device=self.device))
         x = image.permute(2, 0, 1)[None].contiguous()  # NCHW
         with span("serve.detector", self.device):
-            pred = resnet.keypoint_cnn_apply_folded(self.folded, x, compute_dtype=self.compute_dtype)
+            pred = self._detect(self.folded, x, self.compute_dtype)
         keypoints = denormalize_pixel_coordinates(pred.reshape(-1, 2), cfg.model_h, cfg.model_w)
         if self.smoother is not None:
             with span("smoother.update", self.device):

@@ -37,11 +37,12 @@ def kernel_wrappers() -> tuple:
     """The hand kernels' Python wrappers, each with its ``launches`` count
     (one added where the wrapper launches its kernel)."""
     from perseus_tpu_torch.augment import fused, warp
-    from perseus_tpu_torch.models import pool
+    from perseus_tpu_torch.models import pool, swinv2
     from perseus_tpu_torch.smoother import lm
 
     return (pool.max_pool_3x3_s2, pool.max_pool_3x3_s2_backward, fused.fused_apply,
-            fused.fused_warp_apply, fused.fused_ultra_apply, warp.warp_affine_two_pass, lm.lm_solve_cuda)
+            fused.fused_warp_apply, fused.fused_ultra_apply, warp.warp_affine_two_pass, lm.lm_solve_cuda,
+            swinv2.window_attention)
 
 
 def _launch_counts() -> dict:

@@ -24,6 +24,23 @@ pytestmark = pytest.mark.skipif(not nio.available(), reason="no C++ toolchain or
 RNG = np.random.default_rng(4)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def jax_decoder(tmp_path_factory):
+    """The JAX package's decoder, built for this module in a directory of
+    its own. That package's ``_compile`` runs ``g++ -o`` straight onto a
+    library path that every process shares, and its ``_load`` tries once
+    per process: under pytest-xdist another worker's ``test_native_io.py``
+    may be writing the shared file when this one loads it, and a
+    half-written library would leave the decoder missing here for the
+    whole run."""
+    if jnio._LIB is None:
+        build_dir = str(tmp_path_factory.mktemp("jax_nio_build"))
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jnio, "_build_dir", lambda: build_dir)
+            mp.setattr(jnio, "_TRIED", False)
+            assert jnio.available(), "the JAX package's native decoder did not build"
+
+
 @pytest.fixture(scope="module")
 def files(tmp_path_factory):
     d = tmp_path_factory.mktemp("port_nio")
